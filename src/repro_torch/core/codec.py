@@ -1,0 +1,1040 @@
+"""Image codecs: the pluggable encode/verify stack of the checkpoint
+pipeline (paper Fig 3 — write time and image size dominate at scale;
+NERSC follow-up arXiv:2103.08546).
+
+Two consumers share this module:
+
+  * `CheckpointManager` (file images, `repro_torch.core.checkpoint`) resolves
+    its per-array encodings through an `ImageCodec` stack — the first
+    codec that claims a path encodes it, `RawCodec` is the terminal
+    fallback, and every payload chunk is stamped with a Fletcher digest
+    (`repro_torch.kernels.checksum`) that restore MUST verify.
+  * the wire checkpoint path (rank snapshots shipped to the
+    launcher-side image collector via the `snap` op) encodes each
+    rank's array state with `SnapshotCodec` /
+    `IncrementalSnapshotter`: a FULL image every `ChainPolicy.full_every`
+    checkpoints, XOR deltas against the previous snapshot otherwise.
+    Since format 2 a snapshot blob is a BINARY container — magic +
+    compact JSON header (dtype, shape, digest, base epoch, stream
+    lengths) followed by length-prefixed raw zlib streams, decoded via
+    memoryview slicing with no base64/JSON payload copies.  Each cell
+    runs through a byte-SHUFFLE filter (HDF5/blosc style: transpose the
+    byte planes of multi-byte dtypes) before deflate, which is what
+    buys the container its size edge over the old zlib+base64-in-JSON
+    cells (format 1; see `migrate_blob` for the one-shot shim that
+    keeps committed images from older runs restorable).  Restore walks
+    the base chain (`decode_chain` / `restore_rank_arrays`), verifying
+    every shard digest on the way — a corrupted or truncated image is a
+    typed `ImageIntegrityError`, never a garbage restore (and never a
+    raw struct/zlib traceback).
+
+All heavy per-byte work (XOR delta, digest, int8 quantization and,
+in `CheckpointManager` restore, dequantization) is dispatched by the input's device, with no fallback: a CUDA tensor goes
+to the hand-written Hopper kernel (`repro_torch.kernels.*.ops`, which
+launches or raises), a CPU tensor to that kernel's plain PyTorch
+version, and host bytes or numpy arrays to the numpy twins.  The
+`CheckpointManager` codecs take tensors and return payloads as flat
+uint8 tensors on the tensor's device; the wire-image codecs below work
+on host bytes.  On-disk and wire formats are the reference's, byte for
+byte.  The reference's `use_pallas=` switch has no counterpart: the
+device decides.
+
+Port of `repro.core.codec`: everything but the dispatch functions and
+the three `CheckpointManager` codecs' tensor handling is the
+reference's code.
+"""
+from __future__ import annotations
+
+import base64
+import json
+import struct
+import sys
+import zlib
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+
+from repro_torch.kernels.checksum.ref import checksum_np
+from repro_torch.kernels.delta.ref import apply_np, delta_np
+from repro_torch.kernels.quantize import ref as quant_ref
+
+# torch is imported lazily: the wire-image path and the protocol layers
+# that import this module run in light processes.  A value can only be a
+# tensor when torch is already loaded.
+
+
+def _is_tensor(x) -> bool:
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(x, torch.Tensor)
+
+
+def _delta_dispatch(cur, prev):
+    """Byte XOR delta: tensors -> `xor_bytes` (kernel on CUDA, plain on
+    CPU), host arrays -> `delta_np`."""
+    if _is_tensor(cur):
+        from repro_torch.kernels.delta.ops import xor_bytes
+        return xor_bytes(cur, prev)
+    return delta_np(cur, prev)
+
+
+def _quantize_dispatch(x):
+    """Blockwise int8: a tensor -> `quantize` (kernel on CUDA, plain on
+    CPU), a host array -> `quantize_np`."""
+    if _is_tensor(x):
+        from repro_torch.kernels.quantize.ops import quantize
+        return quantize(x)
+    return quant_ref.quantize_np(x)
+
+
+def _payload(x):
+    """A codec payload part: a tensor's bytes as a flat uint8 tensor on
+    its device, a host array's as bytes."""
+    if _is_tensor(x):
+        from repro_torch.kernels import as_bytes
+        return as_bytes(x.contiguous())
+    return np.asarray(x).tobytes()
+
+
+def dtype_name(t) -> str:
+    """The manifest's dtype string of a tensor or array (numpy's names,
+    as the reference writes them)."""
+    if _is_tensor(t):
+        return str(t.dtype).replace("torch.", "")
+    return str(t.dtype)
+
+
+def torch_dtype(name: str):
+    import torch
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise CheckpointError(f"dtype {name!r} has no torch counterpart")
+    return dt
+
+
+# ---------------------------------------------------------------------------
+# typed errors
+# ---------------------------------------------------------------------------
+
+class ImageError(RuntimeError):
+    """Base class for checkpoint-image faults (file or wire images)."""
+
+
+class CheckpointError(ImageError):
+    """General checkpoint failure (the historical name; re-exported by
+    `repro_torch.core.checkpoint` for back compatibility)."""
+
+
+class ImageIntegrityError(CheckpointError):
+    """A shard failed digest verification or arrived truncated.
+
+    Restore refuses to proceed: a silent bit-flip in a checkpoint would
+    otherwise restart the job from garbage state."""
+
+
+class DeltaChainError(CheckpointError):
+    """A delta image references a base that is missing, mismatched, or
+    whose chain exceeds the configured bound."""
+
+
+class WorldMismatchError(ImageError):
+    """A committed image's world size disagrees with the world it is
+    being restored into (and no reshard-capable `RestorePlan` bridges
+    them).  Raised by `repro_torch.restore_world` / `RestorePlan.for_image`
+    at plan time, by `RestoredWorld.bind` against the live world, and
+    by the coordinator's HELLO-time validation (the "hello" control
+    op) — never a silent shard misassignment."""
+
+
+# ---------------------------------------------------------------------------
+# chain management policy
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ChainPolicy:
+    """Incremental-checkpoint chain management.
+
+    full_every — emit a FULL image every K checkpoints (the first image
+        of an incarnation is always full); between fulls, images are XOR
+        deltas against the immediately preceding snapshot, so a chain is
+        at most (full_every - 1) deltas deep.
+    max_chain — hard decode-time bound on chain length; a longer chain
+        means the writer and reader disagree on policy and restore
+        raises `DeltaChainError` instead of walking an unbounded chain.
+    """
+    full_every: int = 4
+    max_chain: int = 8
+
+
+# ---------------------------------------------------------------------------
+# CheckpointManager's per-array codec stack
+# ---------------------------------------------------------------------------
+
+class ImageCodec:
+    """One encoding strategy for checkpoint arrays.
+
+    `encode` returns (encoding_name, payload_parts, manifest_meta) when
+    this codec claims the array, or None to pass to the next codec in
+    the stack.  `decode` inverts it.  `ctx` is the manager-provided
+    context: `ctx.base_array(path)` reads the array from the delta-base
+    image; the input's device selects kernel, plain or numpy path.
+    """
+
+    name = "abstract"
+
+    def __init__(self, keys: Tuple[str, ...] = ()):
+        # path selectors: a codec claims a path equal to, or nested
+        # under, any of its keys (empty = claims nothing / everything
+        # depending on the codec)
+        self.keys = tuple(keys)
+
+    def claims(self, path: str) -> bool:
+        return any(path == k or path.startswith(k) for k in self.keys)
+
+    def encode(self, path: str, arr: np.ndarray, ctx) -> Optional[
+            Tuple[str, List[bytes], Dict]]:
+        raise NotImplementedError
+
+    def decode(self, parts: List[bytes], entry: Dict, ctx) -> np.ndarray:
+        raise NotImplementedError
+
+
+class RawCodec(ImageCodec):
+    """Terminal codec: raw little-endian bytes."""
+
+    name = "raw"
+
+    def encode(self, path, arr, ctx):
+        return "raw", [_payload(arr)], {}
+
+    def decode(self, parts, entry, ctx):
+        shape = tuple(entry["shape"])
+        if _is_tensor(parts[0]):
+            return parts[0].view(torch_dtype(entry["dtype"])).reshape(shape)
+        dtype = np.dtype(entry["dtype"])
+        return np.frombuffer(parts[0], dtype).reshape(shape).copy()
+
+
+class QuantizeCodec(ImageCodec):
+    """Blockwise-int8 low-precision shadow (the quantize and dequantize
+    kernels for CUDA tensors).  Lossy by design — selected for state that
+    tolerates it (optimizer moments)."""
+
+    name = "int8_block"
+
+    def encode(self, path, arr, ctx):
+        if not self.claims(path):
+            return None
+        q, s, pad = _quantize_dispatch(arr)
+        return "int8_block", [_payload(q), _payload(s)], {"pad": pad}
+
+    def decode(self, parts, entry, ctx):
+        shape = tuple(entry["shape"])
+        if _is_tensor(parts[0]):
+            # on the payload's device: the dequantize kernel on CUDA
+            from repro_torch.kernels.quantize.ops import dequantize
+            return dequantize(parts[0].view(torch_dtype("int8")),
+                              parts[1].view(torch_dtype("float32")),
+                              entry["pad"], shape,
+                              torch_dtype(entry["dtype"]))
+        dtype = np.dtype(entry["dtype"])
+        q = np.frombuffer(parts[0], np.int8).reshape(-1, quant_ref.QBLOCK)
+        s = np.frombuffer(parts[1], np.float32).reshape(-1, 1)
+        return quant_ref.dequantize_np(q, s, entry["pad"], shape, dtype)
+
+
+class DeltaCodec(ImageCodec):
+    """XOR delta against the same array in the base image (the XOR
+    kernel for CUDA tensors).  Exact for every dtype; claims a
+    path only when the manager's chain policy allows another delta AND
+    the base image holds a shape/dtype-compatible array."""
+
+    name = "xor_delta"
+
+    def encode(self, path, arr, ctx):
+        if not self.claims(path) or ctx.base_step is None:
+            return None
+        prev = ctx.base_array(path)
+        if prev is None or prev.shape != arr.shape or prev.dtype != arr.dtype:
+            return None
+        d = _delta_dispatch(arr, prev)
+        return "xor_delta", [_payload(d)], {"base_step": ctx.base_step}
+
+    def decode(self, parts, entry, ctx):
+        shape = tuple(entry["shape"])
+        dtype = entry["dtype"]
+        base = ctx.read_base(entry["base_step"])
+        if base is None:
+            raise DeltaChainError(
+                f"missing delta base step {entry['base_step']}")
+        if _is_tensor(parts[0]):
+            return _delta_dispatch(base, parts[0]).view(
+                torch_dtype(entry["dtype"])).reshape(shape)
+        return apply_np(base, np.frombuffer(parts[0], np.uint8),
+                        shape, dtype)
+
+
+def shard_digest(data) -> int:
+    """Fletcher digest of one payload chunk (write AND restore path): a
+    tensor's bytes on its device (`checksum`: kernel on CUDA, plain on
+    CPU), host bytes with `checksum_np`."""
+    if _is_tensor(data):
+        from repro_torch.kernels.checksum.ops import checksum
+        return checksum(data)
+    return checksum_np(np.frombuffer(data, np.uint8))
+
+
+# ---------------------------------------------------------------------------
+# wire images: binary rank-snapshot containers with delta chains
+# ---------------------------------------------------------------------------
+
+SNAP_FORMAT = 2
+# top-level key the launcher-side image collector keys chain GC on: a
+# shipped blob carrying it is a delta member whose base epoch must stay
+# collectible until the blob itself is pruned
+BASE_EPOCH_KEY = "ckpt_base_epoch"
+
+# default deflate level for snapshot cells.  Picked by the
+# `image_codec_throughput` benchmark: behind the shuffle filter, level 1
+# encodes ~3x faster than level 6 for <1.5% more bytes on float shards
+# (and the filter itself, not the level, is what beats the old base64
+# path on size) — so the fast level is the right default.
+DEFAULT_COMPRESS_LEVEL = 1
+
+# container layout: magic | u8 version | pad(3) | u32 header_len |
+# u32 header_digest | header JSON | per-cell (u32 stream_len | raw zlib
+# stream), streams in header order.  The header is the only JSON left
+# in a snapshot; every payload byte is a raw deflate stream, and the
+# header itself is digest-protected so a bit-flip anywhere in the
+# container is a typed error, never a silently-wrong decode.
+_SNAP_MAGIC = b"MSNP"
+_SNAP_HDR = struct.Struct(">4sBxxxII")
+_STREAM_LEN = struct.Struct(">I")
+
+Blob = Union[bytes, bytearray, memoryview, Dict]
+
+
+def _shuffle(raw: bytes, itemsize: int) -> bytes:
+    """Byte-shuffle filter (HDF5/blosc style): transpose the byte planes
+    of an `itemsize`-wide array so deflate sees the highly-repetitive
+    exponent/high bytes as runs.  Lossless and cheap (one transpose);
+    measured: float32 shards compress ~7% smaller AND faster, integer
+    state 10-30x smaller."""
+    if itemsize <= 1 or len(raw) % itemsize:
+        return raw
+    planes = np.frombuffer(raw, np.uint8).reshape(-1, itemsize)
+    return np.ascontiguousarray(planes.T).tobytes()
+
+
+def _unshuffle(raw: bytes, itemsize: int) -> np.ndarray:
+    """Inverse of `_shuffle`; returns a fresh writable uint8 array."""
+    planes = np.frombuffer(raw, np.uint8).reshape(itemsize, -1)
+    return np.ascontiguousarray(planes.T).reshape(-1)
+
+
+def is_snap_blob(blob: Blob) -> bool:
+    """True when `blob` is a binary snapshot container (format 2)."""
+    return (isinstance(blob, (bytes, bytearray, memoryview))
+            and len(blob) >= len(_SNAP_MAGIC)
+            and bytes(blob[:len(_SNAP_MAGIC)]) == _SNAP_MAGIC)
+
+
+def _snap_header(blob: Blob) -> Tuple[Dict, int, memoryview]:
+    """Parse a container's header; returns (meta, payload_offset, view).
+
+    Every malformed input is a typed `ImageError` subclass — callers
+    (and the fuzz suite) never see a struct/zlib/json traceback."""
+    mv = memoryview(blob)
+    if len(mv) < _SNAP_HDR.size:
+        raise ImageIntegrityError(
+            f"truncated snapshot container ({len(mv)} bytes)")
+    magic, version, hlen, hdigest = _SNAP_HDR.unpack_from(mv)
+    if magic != _SNAP_MAGIC:
+        raise ImageError(f"not a snapshot container (magic {magic!r})")
+    if version != SNAP_FORMAT:
+        raise ImageError(f"unsupported snapshot container version "
+                         f"{version} (this build reads {SNAP_FORMAT})")
+    if bytes(mv[5:8]) != b"\x00\x00\x00":  # reserved pad must be zero
+        raise ImageIntegrityError("corrupt container prefix (reserved "
+                                  "bytes nonzero)")
+    end = _SNAP_HDR.size + hlen
+    if end > len(mv):
+        raise ImageIntegrityError(
+            f"truncated snapshot header ({hlen} bytes claimed, "
+            f"{len(mv) - _SNAP_HDR.size} present)")
+    hbytes = mv[_SNAP_HDR.size:end]
+    got = shard_digest(hbytes)
+    if got != hdigest:
+        raise ImageIntegrityError(
+            f"snapshot header digest mismatch ({got} != {hdigest})")
+    try:
+        meta = json.loads(bytes(hbytes).decode())
+    except Exception as e:  # noqa: BLE001 — corrupted header bytes
+        raise ImageIntegrityError(
+            f"corrupt snapshot header: {e}") from e
+    if (not isinstance(meta, dict)
+            or not isinstance(meta.get("arrays"), dict)):
+        raise ImageIntegrityError("corrupt snapshot header: not a meta dict")
+    return meta, end, mv
+
+
+def snap_meta(blob: Blob) -> Dict:
+    """A snapshot blob's metadata header, payload untouched.
+
+    Binary containers parse only the compact header (cheap — no
+    decompression); legacy format-1 dicts and plain app dicts are
+    returned as-is, so collector/benchmark code reads one shape."""
+    if isinstance(blob, dict):
+        return blob
+    return _snap_header(blob)[0]
+
+
+def blob_base_epoch(blob: Blob) -> Optional[int]:
+    """Delta-chain link of a shipped blob, if it advertises one — the
+    key the launcher-side image collector's chain GC walks.  Handles
+    binary containers, legacy dicts, and app blobs of ANY other
+    JSON-safe shape (lists, strings, None...) — anything that is not a
+    snapshot container is simply chainless (returns None), never an
+    exception into the collector's serve loop."""
+    if isinstance(blob, dict):
+        base = blob.get(BASE_EPOCH_KEY)
+    elif is_snap_blob(blob):
+        try:
+            base = _snap_header(blob)[0].get(BASE_EPOCH_KEY)
+        except ImageError:
+            return None
+    else:
+        return None
+    try:
+        return None if base is None else int(base)
+    except (TypeError, ValueError):
+        return None
+
+
+def _check_stream(mv: memoryview, off: int, cell: Dict,
+                  what: str) -> Tuple[memoryview, int]:
+    """Bounds-check + digest-verify one length-prefixed stream; returns
+    (stream_view, next_offset) without copying the payload."""
+    try:
+        zn, n = int(cell["zn"]), int(cell["n"])
+    except (KeyError, TypeError, ValueError) as e:
+        raise ImageIntegrityError(f"{what}: corrupt cell header") from e
+    if off + _STREAM_LEN.size + zn > len(mv):
+        raise ImageIntegrityError(
+            f"{what}: truncated payload section (need {zn} bytes at "
+            f"offset {off}, container ends at {len(mv)})")
+    if _STREAM_LEN.unpack_from(mv, off)[0] != zn:
+        raise ImageIntegrityError(
+            f"{what}: stream length prefix disagrees with the header")
+    off += _STREAM_LEN.size
+    stream = mv[off:off + zn]
+    got = shard_digest(stream)
+    if got != cell["digest"]:
+        raise ImageIntegrityError(
+            f"{what}: digest mismatch ({got} != {cell['digest']})")
+    return stream, off + zn
+
+
+def _inflate(stream: memoryview, cell: Dict, what: str) -> bytes:
+    try:
+        raw = zlib.decompress(stream)
+    except zlib.error as e:  # digest passed but stream malformed
+        raise ImageIntegrityError(f"{what}: undecodable payload: "
+                                  f"{e}") from e
+    if len(raw) != cell["n"]:
+        raise ImageIntegrityError(
+            f"{what}: truncated payload ({len(raw)} != {cell['n']})")
+    filt = int(cell.get("filter", 0))
+    if filt > 1:
+        return _unshuffle(raw, filt)
+    return raw
+
+
+def _pack_container(magic: bytes, version: int, meta: Dict,
+                    sections: Tuple[bytes, ...] = (), *,
+                    prefixed: bool) -> bytes:
+    """Assemble a container: fixed prefix | digest-protected compact
+    JSON header | sections (length-prefixed streams for snapshot
+    containers, raw blobs for the image container).  The ONE place the
+    normative layout lives — encode, the migration shim, and the image
+    container all call it, so the format cannot fork."""
+    hjson = json.dumps(meta, sort_keys=True,
+                       separators=(",", ":")).encode()
+    parts = [_SNAP_HDR.pack(magic, version, len(hjson),
+                            shard_digest(hjson)), hjson]
+    for z in sections:
+        if prefixed:
+            parts.append(_STREAM_LEN.pack(len(z)))
+        parts.append(z)
+    # single join: one copy total into the container, no per-cell
+    # base64/JSON intermediates
+    return b"".join(parts)
+
+
+def _as_array(raw, dtype, shape, what: str) -> np.ndarray:
+    """Reinterpret inflated cell bytes (bytes or a uint8 array from the
+    unshuffle) as a writable `dtype` array of `shape`; size mismatches
+    are integrity errors, not numpy tracebacks."""
+    try:
+        if isinstance(raw, np.ndarray):
+            return raw.view(dtype).reshape(shape)
+        return np.frombuffer(raw, dtype).reshape(shape).copy()
+    except (ValueError, TypeError) as e:
+        raise ImageIntegrityError(
+            f"{what}: payload does not fit shape {shape} "
+            f"dtype {dtype}: {e}") from e
+
+
+class SnapshotCodec:
+    """Encode/decode one rank's array state as a binary image container.
+
+    encode(epoch, arrays, base=None, extra=None) -> bytes: the format-2
+    container (magic | version | compact JSON header | length-prefixed
+    raw zlib streams).  The header carries {"ckpt_format": 2, "epoch",
+    "encoding": "full" | "delta", "ckpt_base_epoch" (delta blobs only),
+    "arrays": {name: {"shape", "dtype", "encoding", cell...}},
+    "payload_bytes", and the app `extra` dict rides as its own
+    compressed+digested stream.
+
+    A delta blob encodes each array as an XOR against the base snapshot
+    (numpy XOR on the host bytes) — unchanged regions are zero
+    runs, so small-change steps produce small images.  Every cell runs
+    through the byte-shuffle filter, then deflate at `compress_level`.
+    Arrays absent from the base (or with changed shape/dtype) degrade
+    to full cells inside a delta blob.  Every stream carries a digest
+    over its compressed bytes; decode verifies it via memoryview slices
+    (no payload copies) and raises `ImageIntegrityError` on any
+    mismatch or truncation.  Legacy format-1 JSON blobs decode through
+    the `migrate_blob` shim transparently.
+
+    >>> import numpy as np
+    >>> codec = SnapshotCodec()
+    >>> blob = codec.encode(1, {"w": np.zeros(4, np.float32)})
+    >>> (is_snap_blob(blob), snap_meta(blob)["encoding"])
+    (True, 'full')
+    >>> codec.decode(blob)["w"].tolist()
+    [0.0, 0.0, 0.0, 0.0]
+    """
+
+    def __init__(self, quantize_keys: Tuple[str, ...] = (),
+                 compress_level: int = DEFAULT_COMPRESS_LEVEL):
+        self.quantize_keys = tuple(quantize_keys)
+        self.compress_level = compress_level
+
+    # ---- encode ------------------------------------------------------------
+    def _pack(self, raw: bytes, itemsize: int = 1,
+              ) -> Tuple[bytes, Dict[str, Any]]:
+        """bytes -> (zlib stream, cell meta): shuffle + deflate + digest.
+
+        The digest covers the COMPRESSED bytes, so truncation and
+        bit-flips are caught before decompression ever runs.  `zn`
+        records the stream size — the real bytes shipped, which is what
+        the `ckpt_image_bytes` benchmark sums."""
+        filt = itemsize if (itemsize > 1 and len(raw) % itemsize == 0) else 0
+        comp = zlib.compress(_shuffle(raw, itemsize) if filt else raw,
+                             self.compress_level)
+        return comp, {"n": len(raw), "zn": len(comp), "filter": filt,
+                      "digest": shard_digest(comp)}
+
+    def _encode_cell(self, name: str, arr: np.ndarray,
+                     base: Optional[Dict[str, np.ndarray]],
+                     streams: List[bytes]) -> Dict:
+        arr = np.ascontiguousarray(arr)
+        cell: Dict[str, Any] = {"shape": list(arr.shape),
+                                "dtype": str(arr.dtype)}
+        if name in self.quantize_keys:
+            q, s, pad = _quantize_dispatch(arr)
+            zq, mq = self._pack(q.tobytes())           # int8: no shuffle
+            zs, ms = self._pack(s.tobytes(), 4)        # f32 scales
+            cell.update(encoding="int8_block", pad=pad,
+                        payload=mq, scales=ms)
+            streams += [zq, zs]
+            return cell
+        prev = None if base is None else base.get(name)
+        if (prev is not None and prev.shape == arr.shape
+                and prev.dtype == arr.dtype):
+            d = _delta_dispatch(arr, prev)
+            # shuffle the XOR bytes by the SOURCE itemsize: zeroed
+            # high-byte planes of barely-changed values become runs
+            z, m = self._pack(np.asarray(d).tobytes(), arr.dtype.itemsize)
+            cell.update(encoding="xor_delta", payload=m)
+        else:
+            z, m = self._pack(arr.tobytes(), arr.dtype.itemsize)
+            cell.update(encoding="raw", payload=m)
+        streams.append(z)
+        return cell
+
+    def encode(self, epoch: int, arrays: Dict[str, np.ndarray], *,
+               base: Optional[Tuple[int, Dict[str, np.ndarray]]] = None,
+               extra: Optional[Dict] = None) -> bytes:
+        base_epoch, base_arrays = base if base is not None else (None, None)
+        streams: List[bytes] = []
+        cells = {name: self._encode_cell(name, np.asarray(arr), base_arrays,
+                                         streams)
+                 for name, arr in sorted(arrays.items())}
+        meta: Dict[str, Any] = {
+            "ckpt_format": SNAP_FORMAT,
+            "epoch": epoch,
+            "encoding": "full" if base_epoch is None else "delta",
+            "arrays": cells,
+            "payload_bytes": sum(
+                c["payload"]["zn"] + c.get("scales", {}).get("zn", 0)
+                for c in cells.values()),
+        }
+        if base_epoch is not None:
+            meta[BASE_EPOCH_KEY] = base_epoch
+        if extra:
+            # the app dict ships as its own compressed+digested stream
+            # (chaos images carry serialized agents here — real bytes)
+            ze, me = self._pack(json.dumps(extra).encode())
+            meta["extra_cell"] = me
+            streams.append(ze)
+        else:
+            meta["extra"] = {}
+        return _pack_container(_SNAP_MAGIC, SNAP_FORMAT, meta,
+                               tuple(streams), prefixed=True)
+
+    # ---- decode ------------------------------------------------------------
+    def _cell_streams(self, meta: Dict, payload_off: int, mv: memoryview,
+                      epoch) -> Dict[str, Tuple[memoryview, ...]]:
+        """Walk the payload section in header order; verify every
+        stream's bounds + digest; return per-cell stream views."""
+        out: Dict[str, Tuple[memoryview, ...]] = {}
+        off = payload_off
+        for name, cell in meta["arrays"].items():
+            what = f"epoch {epoch} array {name!r}"
+            if not isinstance(cell, dict):
+                raise ImageIntegrityError(f"{what}: corrupt cell header")
+            views = []
+            for part in ("payload", "scales"):
+                if part not in cell:
+                    continue
+                view, off = _check_stream(mv, off, cell[part], what)
+                views.append(view)
+            out[name] = tuple(views)
+        if "extra_cell" in meta:
+            view, off = _check_stream(mv, off, meta["extra_cell"],
+                                      f"epoch {epoch} extra")
+            out["__extra__"] = (view,)
+        return out
+
+    def decode_extra(self, blob: Blob) -> Dict:
+        """The app `extra` dict of a snapshot blob, digest-verified.
+        Legacy dict blobs return their inline "extra" (or, for plain
+        app dicts that never went through the codec, the dict itself)."""
+        if isinstance(blob, dict):
+            return blob.get("extra", blob)
+        meta, off, mv = _snap_header(blob)
+        if "extra_cell" not in meta:
+            return meta.get("extra", {})
+        epoch = meta.get("epoch")
+        what = f"epoch {epoch} extra"
+        # the extra cell is the LAST stream: skip the array streams
+        # arithmetically (the header is digest-protected, so the zn
+        # values are trustworthy) instead of re-digesting every array
+        # payload — restore_rank_arrays calls this right after
+        # decode_chain verified them all
+        try:
+            for cell in meta["arrays"].values():
+                for part in ("payload", "scales"):
+                    if part in cell:
+                        off += _STREAM_LEN.size + int(cell[part]["zn"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise ImageIntegrityError(
+                f"{what}: corrupt cell header") from e
+        view, _ = _check_stream(mv, off, meta["extra_cell"], what)
+        raw = _inflate(view, meta["extra_cell"], what)
+        try:
+            return json.loads(bytes(raw).decode())
+        except Exception as e:  # noqa: BLE001 — corrupted extra
+            raise ImageIntegrityError(f"corrupt extra dict: {e}") from e
+
+    def decode(self, blob: Blob, *,
+               base_arrays: Optional[Dict[str, np.ndarray]] = None,
+               ) -> Dict[str, np.ndarray]:
+        if isinstance(blob, dict):
+            if blob.get("ckpt_format") == 1:
+                blob = migrate_blob(blob)  # legacy JSON image, one shot
+            else:
+                raise ImageError(
+                    f"not a SnapshotCodec blob (format "
+                    f"{blob.get('ckpt_format')!r})")
+        meta, payload_off, mv = _snap_header(blob)
+        epoch = meta.get("epoch")
+        if meta.get("encoding") == "delta" and base_arrays is None:
+            raise DeltaChainError(
+                f"delta blob for epoch {epoch} decoded without "
+                f"its base (epoch {meta.get(BASE_EPOCH_KEY)})")
+        streams = self._cell_streams(meta, payload_off, mv, epoch)
+        out: Dict[str, np.ndarray] = {}
+        for name, cell in meta["arrays"].items():
+            what = f"epoch {epoch} array {name!r}"
+            try:
+                shape = tuple(cell["shape"])
+                dtype = np.dtype(cell["dtype"])
+            except (KeyError, TypeError) as e:
+                raise ImageIntegrityError(
+                    f"{what}: corrupt cell header") from e
+            raw = _inflate(streams[name][0], cell["payload"], what)
+            if cell.get("encoding") == "raw":
+                out[name] = _as_array(raw, dtype, shape, what)
+            elif cell.get("encoding") == "int8_block":
+                scales = _inflate(streams[name][1], cell["scales"], what)
+                q = _as_array(raw, np.int8, (-1, quant_ref.QBLOCK), what)
+                s = _as_array(scales, np.float32, (-1, 1), what)
+                out[name] = quant_ref.dequantize_np(q, s, cell["pad"],
+                                                    shape, dtype)
+            elif cell.get("encoding") == "xor_delta":
+                prev = (base_arrays or {}).get(name)
+                if prev is None or prev.shape != shape or prev.dtype != dtype:
+                    raise DeltaChainError(
+                        f"{what}: delta cell without a matching base array")
+                out[name] = apply_np(prev, _as_array(raw, np.uint8, (-1,),
+                                                     what),
+                                     shape, dtype)
+            else:
+                raise ImageError(f"{what}: unknown encoding "
+                                 f"{cell['encoding']!r}")
+        return out
+
+    def decode_chain(self, blobs_by_epoch: Dict[int, Blob], epoch: int, *,
+                     max_chain: int = ChainPolicy.max_chain,
+                     ) -> Dict[str, np.ndarray]:
+        """Reconstruct the arrays of `epoch` by walking its base chain
+        (base-first application of XOR deltas).  `blobs_by_epoch` may
+        key epochs as ints or strings, and may mix binary containers
+        with legacy format-1 dicts (a migrated run's history)."""
+        index = {int(e): b for e, b in blobs_by_epoch.items()}
+        chain: List[Blob] = []
+        e: Optional[int] = epoch
+        while e is not None:
+            blob = index.get(e)
+            if blob is None:
+                raise DeltaChainError(
+                    f"epoch {epoch}: chain base epoch {e} is missing "
+                    f"from the image")
+            chain.append(blob)
+            if len(chain) > max_chain:
+                raise DeltaChainError(
+                    f"epoch {epoch}: delta chain longer than the "
+                    f"max_chain bound ({max_chain})")
+            e = blob_base_epoch(blob)
+        arrays: Optional[Dict[str, np.ndarray]] = None
+        for blob in reversed(chain):
+            arrays = self.decode(blob, base_arrays=arrays)
+        assert arrays is not None
+        return arrays
+
+
+class IncrementalSnapshotter:
+    """Per-rank write-side state of the incremental pipeline.
+
+    Owns the `ChainPolicy` counters and the previous-snapshot base:
+    `snapshot(epoch, arrays, extra)` returns the encoded blob (full
+    every `policy.full_every` checkpoints, delta otherwise) and
+    advances the chain.  Typically called on the BACKGROUND writer
+    (repro_torch.core.snapshot_writer) so the rank returns to compute while
+    encoding and upload happen off the critical path.
+    """
+
+    def __init__(self, policy: ChainPolicy = ChainPolicy(),
+                 codec: Optional[SnapshotCodec] = None):
+        self.policy = policy
+        self.codec = codec or SnapshotCodec()
+        self._base: Optional[Tuple[int, Dict[str, np.ndarray]]] = None
+        self._since_full = 0
+
+    def stage(self, epoch: int, arrays: Dict[str, np.ndarray],
+              extra: Optional[Dict] = None):
+        """Stage a snapshot at the cut: capture the arrays (one memcpy),
+        decide full-vs-delta under the chain policy, advance the chain —
+        and return a PURE zero-arg closure that does the expensive
+        encode.  The closure touches no snapshotter state, so it is
+        safe to run on a background thread OR in a forked writer child
+        (where parent-side mutations would be lost to copy-on-write) —
+        hand it straight to `RankAgent.safe_point`'s async contract.
+        """
+        arrays = {k: np.ascontiguousarray(v).copy()
+                  for k, v in arrays.items()}
+        delta_ok = (self._base is not None
+                    and self._since_full < self.policy.full_every - 1)
+        base = self._base if delta_ok else None
+        self._since_full = self._since_full + 1 if delta_ok else 0
+        # the next delta is encoded against THIS snapshot (chained);
+        # the captured copy above is private, so the app can keep
+        # mutating its own arrays immediately
+        self._base = (epoch, arrays)
+        codec = self.codec
+        return lambda: codec.encode(epoch, arrays, base=base, extra=extra)
+
+    def snapshot(self, epoch: int, arrays: Dict[str, np.ndarray],
+                 extra: Optional[Dict] = None) -> bytes:
+        """Synchronous form: stage + encode in one call."""
+        return self.stage(epoch, arrays, extra)()
+
+
+def restore_rank_arrays(image: Dict, rank: int,
+                        codec: Optional[SnapshotCodec] = None, *,
+                        max_chain: int = ChainPolicy.max_chain,
+                        ) -> Tuple[Dict[str, np.ndarray], Dict]:
+    """Reconstruct one rank's arrays from a committed checkpoint image.
+
+    `image` is the collector's committed image ({"epoch", "ranks",
+    "chains", ...}), possibly after an `image_to_bytes` /
+    `image_from_bytes` round trip (string keys; binary blob bytes) or a
+    legacy JSON round trip (format-1 dict blobs — migrated on the fly).
+    Returns (arrays, extra) where `extra` is the app dict the rank
+    attached at encode time.  Raises `ImageIntegrityError` /
+    `DeltaChainError` on corruption or broken chains.
+    """
+    codec = codec or SnapshotCodec()
+    ranks = image["ranks"]
+    blob = ranks[rank] if rank in ranks else ranks[str(rank)]
+    chains = image.get("chains", {})
+    chain = chains.get(rank, chains.get(str(rank), {}))
+    epoch = int(snap_meta(blob)["epoch"])
+    blobs = {int(e): b for e, b in chain.items()}
+    blobs[epoch] = blob
+    arrays = codec.decode_chain(blobs, epoch, max_chain=max_chain)
+    return arrays, codec.decode_extra(blob)
+
+
+# ---------------------------------------------------------------------------
+# legacy format 1 (zlib+base64-in-JSON cells): one-shot migration shim
+# ---------------------------------------------------------------------------
+
+def encode_legacy_json(epoch: int, arrays: Dict[str, np.ndarray], *,
+                       base: Optional[Tuple[int,
+                                            Dict[str, np.ndarray]]] = None,
+                       extra: Optional[Dict] = None) -> Dict:
+    """The format-1 encoder, kept VERBATIM as the migration shim's
+    round-trip twin and the `image_codec_throughput` benchmark's
+    baseline arm: zlib level 1, base64'd into JSON-safe cells — the
+    ~33% wire inflation the binary container exists to remove.  New
+    code must not write this format."""
+    def pack(raw: bytes) -> Dict[str, Any]:
+        comp = zlib.compress(raw, 1)
+        return {"z": base64.b64encode(comp).decode("ascii"),
+                "nbytes": len(raw), "znbytes": len(comp),
+                "digest": shard_digest(comp)}
+
+    base_epoch, base_arrays = base if base is not None else (None, None)
+    cells: Dict[str, Dict] = {}
+    for name, arr in sorted(arrays.items()):
+        arr = np.ascontiguousarray(np.asarray(arr))
+        cell: Dict[str, Any] = {"shape": list(arr.shape),
+                                "dtype": str(arr.dtype)}
+        prev = None if base_arrays is None else base_arrays.get(name)
+        if (prev is not None and prev.shape == arr.shape
+                and prev.dtype == arr.dtype):
+            d = _delta_dispatch(arr, prev)
+            cell.update(encoding="xor_delta",
+                        payload=pack(np.asarray(d).tobytes()))
+        else:
+            cell.update(encoding="raw", payload=pack(arr.tobytes()))
+        cells[name] = cell
+    blob: Dict[str, Any] = {
+        "ckpt_format": 1, "epoch": epoch,
+        "encoding": "full" if base_epoch is None else "delta",
+        "arrays": cells,
+        "payload_bytes": sum(c["payload"]["znbytes"]
+                             for c in cells.values()),
+        "extra": extra or {},
+    }
+    if base_epoch is not None:
+        blob[BASE_EPOCH_KEY] = base_epoch
+    return blob
+
+
+def migrate_blob(blob: Dict) -> bytes:
+    """Format-1 JSON blob -> format-2 binary container, WITHOUT
+    recompressing: each cell's zlib stream is base64-decoded and
+    spliced into the payload section verbatim (filter 0), its digest —
+    which covers the compressed bytes — carried over unchanged.  So a
+    committed image from an older run migrates in one cheap pass and
+    every integrity guarantee survives the migration."""
+    if blob.get("ckpt_format") != 1:
+        raise ImageError(f"not a format-1 blob "
+                         f"(format {blob.get('ckpt_format')!r})")
+    streams: List[bytes] = []
+    cells: Dict[str, Dict] = {}
+    # SORTED iteration: the header is serialized with sort_keys, and
+    # decode matches streams to cells in header order — a legacy blob
+    # whose arrays dict was inserted unsorted (an externally
+    # re-serialized image) must not migrate to misaligned streams
+    for name, cell in sorted(blob["arrays"].items()):
+        out = {"shape": cell["shape"], "dtype": cell["dtype"],
+               "encoding": cell["encoding"]}
+        if "pad" in cell:
+            out["pad"] = cell["pad"]
+        for part in ("payload", "scales"):
+            if part not in cell:
+                continue
+            old = cell[part]
+            try:
+                comp = base64.b64decode(old["z"], validate=True)
+            except Exception as e:  # noqa: BLE001 — corrupt legacy cell
+                raise ImageIntegrityError(
+                    f"array {name!r}: undecodable legacy payload: "
+                    f"{e}") from e
+            out[part] = {"n": old["nbytes"], "zn": len(comp), "filter": 0,
+                         "digest": old["digest"]}
+            streams.append(comp)
+        cells[name] = out
+    meta: Dict[str, Any] = {
+        "ckpt_format": SNAP_FORMAT, "epoch": blob["epoch"],
+        "encoding": blob["encoding"], "arrays": cells,
+        "payload_bytes": sum(len(z) for z in streams),
+        "migrated_from": 1,
+    }
+    if blob.get(BASE_EPOCH_KEY) is not None:
+        meta[BASE_EPOCH_KEY] = int(blob[BASE_EPOCH_KEY])
+    extra = blob.get("extra") or {}
+    if extra:
+        codec = SnapshotCodec()
+        ze, me = codec._pack(json.dumps(extra).encode())
+        meta["extra_cell"] = me
+        streams.append(ze)
+    else:
+        meta["extra"] = {}
+    return _pack_container(_SNAP_MAGIC, SNAP_FORMAT, meta,
+                           tuple(streams), prefixed=True)
+
+
+def migrate_image(image: Dict) -> Dict:
+    """One-shot migration of a committed image: every format-1 dict
+    blob in "ranks"/"chains" becomes a binary container; blobs already
+    binary (or plain app dicts) pass through untouched."""
+    def conv(blob):
+        if isinstance(blob, dict) and blob.get("ckpt_format") == 1:
+            return migrate_blob(blob)
+        return blob
+
+    out = dict(image)
+    out["ranks"] = {r: conv(b) for r, b in image.get("ranks", {}).items()}
+    if "chains" in image:
+        out["chains"] = {r: {e: conv(b) for e, b in chain.items()}
+                         for r, chain in image["chains"].items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# committed-image container: the supervisor's transport-free unit
+# ---------------------------------------------------------------------------
+
+# layout mirrors the snapshot container: magic | u8 version | pad(3) |
+# u32 header_len | u32 header_digest | header JSON | blob section.
+# Binary snapshot blobs live in the blob section and are referenced
+# from the header as {"_bin": [offset, length]}; JSON-safe app blobs
+# (e.g. serialized agents) ride inline in the header — so the
+# serialized image stays transport-free BY CONSTRUCTION: a blob that
+# smuggled live state fails json.dumps loudly, and binary blobs are
+# inert bytes.
+_IMG_MAGIC = b"MIMG"
+IMG_FORMAT = 1
+
+# The normative field registry of the committed-image container header.
+# docs/PROTOCOL.md renders this table and `docs/check_docs_drift.py`
+# diffs the doc against THIS dict, so adding an image field without
+# documenting it fails CI.  `image_to_bytes` passes every non-blob key
+# through the header verbatim, which is how `remap` (attached by an
+# elastic supervisor via `RestorePlan.attach`) survives the round trip.
+IMAGE_FIELDS: Dict[str, str] = {
+    "epoch": "checkpoint epoch the image committed at",
+    "n_ranks": "world size the snapshots were taken at; validated at "
+               "restore time (a mismatched world without a RestorePlan "
+               "raises WorldMismatchError)",
+    "ranks": "per-rank snapshot blobs keyed by source rank (binary "
+             "containers referenced from the blob section, JSON-safe "
+             "app dicts inline)",
+    "chains": "per-rank delta base-chain blobs for incremental images "
+              "({rank: {base_epoch: blob}})",
+    "remap": "elastic restore spec recorded by RestorePlan.attach "
+             "({n_from, n_to, transport, rank_map}); consumed by "
+             "repro_torch.restore_world to rebuild the plan after a relaunch "
+             "at a different capacity",
+}
+
+
+def image_to_bytes(image: Dict) -> bytes:
+    """Serialize a committed checkpoint image (the collector's
+    {"epoch", "n_ranks", "ranks", "chains"} dict, blobs binary or
+    JSON-safe) to one self-contained byte string — what the supervisor
+    round-trips before every restart and what `--log-dir` persists.
+
+    >>> import numpy as np
+    >>> blob = SnapshotCodec().encode(1, {"w": np.ones(3, np.float32)})
+    >>> img = {"epoch": 1, "n_ranks": 1, "ranks": {0: blob}}
+    >>> out = image_from_bytes(image_to_bytes(img))
+    >>> restore_rank_arrays(out, 0)[0]["w"].tolist()
+    [1.0, 1.0, 1.0]
+    """
+    blobs: List[bytes] = []
+    off = [0]
+
+    def ref(blob):
+        if isinstance(blob, (bytes, bytearray, memoryview)):
+            b = bytes(blob)
+            r = {"_bin": [off[0], len(b)]}
+            blobs.append(b)
+            off[0] += len(b)
+            return r
+        return blob  # JSON-safe app blob: rides in the header
+
+    header = {k: v for k, v in image.items() if k not in ("ranks", "chains")}
+    header["img_format"] = IMG_FORMAT
+    header["ranks"] = {str(r): ref(b)
+                       for r, b in image.get("ranks", {}).items()}
+    if "chains" in image:
+        header["chains"] = {str(r): {str(e): ref(b)
+                                     for e, b in chain.items()}
+                            for r, chain in image["chains"].items()}
+    return _pack_container(_IMG_MAGIC, IMG_FORMAT, header, tuple(blobs),
+                           prefixed=False)
+
+
+def image_from_bytes(data: Union[bytes, bytearray, memoryview]) -> Dict:
+    """Inverse of `image_to_bytes`; binary blobs come back as `bytes`,
+    rank/epoch keys as strings (exactly like the old JSON round trip,
+    which every restore path already tolerates)."""
+    mv = memoryview(data)
+    if len(mv) < _SNAP_HDR.size:
+        raise ImageIntegrityError(f"truncated image container "
+                                  f"({len(mv)} bytes)")
+    magic, version, hlen, hdigest = _SNAP_HDR.unpack_from(mv)
+    if magic != _IMG_MAGIC:
+        raise ImageError(f"not an image container (magic {magic!r})")
+    if version != IMG_FORMAT:
+        raise ImageError(f"unsupported image container version {version}")
+    if bytes(mv[5:8]) != b"\x00\x00\x00":
+        raise ImageIntegrityError("corrupt container prefix (reserved "
+                                  "bytes nonzero)")
+    end = _SNAP_HDR.size + hlen
+    if end > len(mv):
+        raise ImageIntegrityError("truncated image container header")
+    hbytes = mv[_SNAP_HDR.size:end]
+    got = shard_digest(hbytes)
+    if got != hdigest:
+        raise ImageIntegrityError(
+            f"image header digest mismatch ({got} != {hdigest})")
+    try:
+        header = json.loads(bytes(hbytes).decode())
+    except Exception as e:  # noqa: BLE001
+        raise ImageIntegrityError(f"corrupt image header: {e}") from e
+
+    def deref(blob):
+        if isinstance(blob, dict) and "_bin" in blob:
+            o, ln = blob["_bin"]
+            lo = end + int(o)
+            if lo + int(ln) > len(mv):
+                raise ImageIntegrityError(
+                    "image blob section truncated")
+            return bytes(mv[lo:lo + int(ln)])
+        return blob
+
+    out = {k: v for k, v in header.items() if k != "img_format"}
+    out["ranks"] = {r: deref(b) for r, b in header.get("ranks", {}).items()}
+    if "chains" in header:
+        out["chains"] = {r: {e: deref(b) for e, b in chain.items()}
+                         for r, chain in header["chains"].items()}
+    return out
