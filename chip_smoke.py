@@ -25,16 +25,30 @@ fatal on failure:
      `checksum_np` of its file;
   4. report: step times, image bytes, write/restore seconds, peak device
      memory, and one JSON line of the kernels with their launches on the
-     main path.  The counts are set to 0 just before phase 2 and again
-     just before phase 3 and read just after each; each phase must
-     launch the kernels of its path (2: checksum, XOR; 3: checksum,
-     quantize, dequantize), and `launches` is their sum.
+     main path.  The counts are set to 0 just before each main-path
+     phase (2, 3, serve_dense, serve_moe) and read just after it; each
+     phase must launch the kernels of its path (2: checksum, XOR; 3:
+     checksum, quantize, dequantize; serving: checksum, XOR), and
+     `launches` is their sum.  The peak device memory is reset before
+     each phase and printed per phase.
+  serve_dense, serve_moe: the serving path (`make_serve_steps`) with live
+     decode-state images.  qwen2-0.5b at full width and depth, 8 prompts
+     of 2048 tokens; Mixtral-8x7B at full width cut to 4 of 32 layers, 4
+     prompts of 8192 tokens (twice the SWA window: prefill takes the SWA
+     path and the first decode wraps the ring).  Each: prefill, 16
+     greedy decode steps, an image of the decode state at token 6 (full)
+     and at token 10 (XOR delta on 6); a fresh manager restores token 10
+     through the chain onto the card, and tokens 11-15 decoded from it
+     must equal the first run's tokens and logits bit for bit.  Decode
+     after a shorter prefill must agree with a full forward over the
+     same tokens (f32, the first 2 layers, norm-relative 1e-3).
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -401,6 +415,189 @@ def phase_int8(cfg, rc, root: str, report: dict):
     torch.cuda.empty_cache()
 
 
+
+# ---------------------------------------------------------------------------
+# serving phases: prefill, decode, live decode-state images
+# ---------------------------------------------------------------------------
+
+SERVE_STEPS, SNAP_FULL, SNAP_DELTA = 16, 6, 10
+
+
+def _greedy(logits):
+    import torch
+
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _check_decode_against_forward(params, cfg, rc, prompts, report):
+    """Prefill + one decode step against a full forward over the same
+    tokens, on the full-width params cut to their first 2 layers, in
+    float32, for the first prompt.  (At full depth the random-init
+    network amplifies rounding: decode and forward of qwen2-0.5b part far
+    beyond rounding even in float32, while their first layers agree to
+    it.)
+
+    The prefill takes P tokens: P = S - 1, or the SWA window, so that the
+    decode wraps a ring of capacity P.  The forward runs over P + 1
+    tokens, or, with MoE, over P + 512 so that both fill whole groups of
+    512: then the decoded token is the first of its group and no
+    capacity limit drops it in either path (the decode's group of one
+    token drops nothing).  Limit: norm-relative 1e-3."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    depth = 2
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    cut_params = dict(params, blocks=tree_map(lambda t: t[:depth],
+                                              params["blocks"]))
+    f32 = dataclasses.replace(rc, model=cut, dtype="float32",
+                              remat_policy="none")
+    P = cfg.sliding_window or prompts.shape[1] - 1
+    extra = 512 if cfg.moe is not None else 1
+    toks = prompts[:1, :P + extra]
+    if toks.shape[1] != P + extra or (cfg.moe is not None and P % 512):
+        raise AssertionError(f"check needs {P + extra} tokens, P % 512 == 0")
+    with torch.no_grad():
+        _, st = T.prefill(cut_params, cut, f32, None, {"tokens": toks[:, :P]})
+        dec, _ = T.decode_step(cut_params, cut, f32, None, st,
+                               toks[:, P:P + 1])
+        x, _, _ = T.forward(cut_params, cut, f32, None, {"tokens": toks})
+        full = T._logits(cut_params, cut, x[:, P])
+    err = _rel(dec[:, 0], full)
+    report["decode_vs_forward"] = (err, P)
+    if not (err < 1e-3 and torch.isfinite(dec).all()):
+        raise AssertionError(f"decode after a prefill of {P} disagrees with "
+                             f"the forward: {err}")
+
+
+def phase_serve(cfg, rc, batch: int, root: str, report: dict):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.models.transformer import (decode_state_logical,
+                                                init_params)
+    from repro_torch.training.step import make_serve_steps
+
+    dev = torch.device("cuda")
+    S = rc.shape.seq_len
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.monotonic()
+    params, _ = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    report["init_s"] = time.monotonic() - t0
+    prefill_step, serve_step = make_serve_steps(cfg, rc)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, S), generator=gen,
+                            device=dev, dtype=torch.int32)
+
+    t0 = time.monotonic()
+    logits, state = prefill_step(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    report["prefill_s"] = time.monotonic() - t0
+    T_cap = min(cfg.sliding_window, S) if cfg.sliding_window else (
+        S + rc.decode_margin)
+    want = (cfg.n_layers, batch, T_cap, cfg.n_kv_heads_padded, cfg.head_dim)
+    if (tuple(logits.shape) != (batch, cfg.vocab_padded)
+            or not torch.isfinite(logits).all()
+            or int(state["pos"]) != S
+            or tuple(state["layers"]["k"].shape) != want):
+        raise AssertionError(f"prefill: logits {tuple(logits.shape)}, pos "
+                             f"{int(state['pos'])}, cache "
+                             f"{tuple(state['layers']['k'].shape)} != {want}")
+
+    d = os.path.join(root, "serve")
+    mgr = CheckpointManager(d, delta_keys=("decode",), device=dev)
+    logical = {"decode": decode_state_logical(cfg)}
+    tok = _greedy(logits)
+    toks, outs, step_s, saved = [], [], [], {}
+    for i in range(SERVE_STEPS):
+        t0 = time.monotonic()
+        logits, state = serve_step(params, state, tok)
+        tok = _greedy(logits[:, -1])
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        toks.append(tok)
+        outs.append(logits)
+        if i in (SNAP_FULL, SNAP_DELTA):
+            mgr.save(i, {"decode": state}, logical)
+            saved[i] = state
+    report["decode_step_s"] = step_s
+    report["writes"] = list(mgr.stats)
+    if not all(torch.isfinite(o).all() for o in outs):
+        raise AssertionError("decode logits are not finite")
+    with open(os.path.join(mgr.step_dir(SNAP_DELTA), "manifest.json")) as f:
+        arrays = json.load(f)["arrays"]
+    bases = {p: e.get("base_step") for p, e in arrays.items()}
+    if set(bases.values()) != {SNAP_FULL}:
+        raise AssertionError(f"image {SNAP_DELTA}: delta bases {bases}")
+
+    mgr2 = CheckpointManager(d, delta_keys=("decode",), device=dev)
+    t0 = time.monotonic()
+    restored, _ = mgr2.restore(SNAP_DELTA)
+    torch.cuda.synchronize()
+    report["restore_s"] = time.monotonic() - t0
+    state2 = restored["decode"]
+    live = saved[SNAP_DELTA]
+    for key, a, b in (("pos", state2["pos"], live["pos"]),
+                      ("k", state2["layers"]["k"], live["layers"]["k"]),
+                      ("v", state2["layers"]["v"], live["layers"]["v"])):
+        if a.device != b.device or not torch.equal(a, b):
+            raise AssertionError(f"restored decode/{key} != the live state "
+                                 f"at token {SNAP_DELTA}")
+    tok2 = toks[SNAP_DELTA]
+    for i in range(SNAP_DELTA + 1, SERVE_STEPS):
+        logits2, state2 = serve_step(params, state2, tok2)
+        tok2 = _greedy(logits2[:, -1])
+        if not (torch.equal(logits2, outs[i]) and torch.equal(tok2, toks[i])):
+            raise AssertionError(f"continuation after the restore differs "
+                                 f"at token {i}")
+    report["tokens"] = [t[:, 0].tolist() for t in toks]
+    report["distinct_tokens"] = int(np.unique(
+        torch.cat(toks).cpu().numpy()).size)
+    del saved, live, state, state2, restored, outs
+    _check_decode_against_forward(params, cfg, rc, prompts, report)
+    del params, prompts
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def report_serve(name: str, cfg, rc, batch: int, r: dict, card: str):
+    steps = r["decode_step_s"]
+    med = sorted(steps)[len(steps) // 2] * 1e3
+    log(f"{name}: {cfg.arch_id} {cfg.n_layers} L, d {cfg.d_model}, "
+        f"{cfg.n_heads_padded}/{cfg.n_kv_heads_padded} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+        + (f", MoE {cfg.moe.num_experts}e top-{cfg.moe.top_k}"
+           if cfg.moe else "")
+        + (f", SWA {cfg.sliding_window}" if cfg.sliding_window else "")
+        + f"; B={batch} prompts of {rc.shape.seq_len}, bf16 compute, f32 "
+        f"params; {SERVE_STEPS} greedy tokens")
+    log(f"{name}: init_s {r['init_s']:.4f}, prefill_s {r['prefill_s']:.4f}, "
+        f"decode ms/token median {med:.3f} (all: "
+        f"{[round(s * 1e3, 3) for s in steps]}) [{card}]")
+    for w in r["writes"]:
+        log(f"{name}: decode-state image token {w['step']}: {w['bytes']} "
+            f"bytes, snapshot_s {w['snapshot_s']}, write_s {w['write_s']} "
+            f"[{card}]")
+    log(f"{name}: restore of token {SNAP_DELTA} (chain {SNAP_DELTA} -> "
+        f"{SNAP_FULL}) {r['restore_s']:.4f} s; tokens {SNAP_DELTA + 1}-"
+        f"{SERVE_STEPS - 1} and their logits equal the first run bit for "
+        f"bit; {r['distinct_tokens']} distinct tokens generated; decode "
+        f"after a prefill of {r['decode_vs_forward'][1]} vs forward (f32, "
+        f"first 2 layers) norm-relative {r['decode_vs_forward'][0]:.3e} "
+        f"[{card}]")
+    log(f"{name}: max_memory_allocated {r['peak']} bytes "
+        f"({r['peak'] / 2**30:.2f} GiB) [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -441,26 +638,49 @@ def main() -> int:
     # phase 1
     rows = phase_kernels(card)
 
-    # phases 2-3: the main path, each phase counted from zero
+    # phases 2-3 and the serving phases: the main path, each phase
+    # counted from zero, each with its own peak memory
     cfg = ARCHS["qwen2-0.5b"]
     rc = RunConfig(model=cfg, shape=ShapeConfig("smoke_h100", 1024, 8, "train"))
+    dense_rc = RunConfig(model=cfg,
+                         shape=ShapeConfig("serve_h100", 2048, 8, "prefill"))
+    # Mixtral-8x7B at full width, cut in depth only (32 -> 4 layers)
+    moe_cfg = dataclasses.replace(ARCHS["mixtral-8x7b"], n_layers=4)
+    moe_rc = RunConfig(model=moe_cfg,
+                       shape=ShapeConfig("serve_h100", 8192, 4, "prefill"))
     root = tempfile.mkdtemp(prefix="chip_smoke_")
-    report: dict = {}
+    report: dict = {"serve_dense": {}, "serve_moe": {}}
     counters = {"checksum": (cops, "launches"), "xor_delta": (dops, "launches"),
                 "quantize_int8": (qops, "launches"),
                 "dequantize_int8": (qops, "dequantize_launches")}
-    paths = {"resume": (phase_resume, ("checksum", "xor_delta")),
-             "int8": (phase_int8, ("checksum", "quantize_int8",
-                                   "dequantize_int8"))}
-    by_phase = {}
-    torch.cuda.reset_peak_memory_stats()
+    paths = {
+        "resume": (lambda: phase_resume(cfg, rc, root, report),
+                   ("checksum", "xor_delta")),
+        "int8": (lambda: phase_int8(cfg, rc, root, report),
+                 ("checksum", "quantize_int8", "dequantize_int8")),
+        "serve_dense": (lambda: phase_serve(cfg, dense_rc, 8, root,
+                                            report["serve_dense"]),
+                        ("checksum", "xor_delta")),
+        "serve_moe": (lambda: phase_serve(moe_cfg, moe_rc, 4, root,
+                                          report["serve_moe"]),
+                      ("checksum", "xor_delta")),
+    }
+    by_phase, peaks = {}, {}
     for phase, (drive, _) in paths.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
-        drive(cfg, rc, root, report)
+        t0 = time.monotonic()
+        drive()
         by_phase[phase] = {n: getattr(mod, attr)
                            for n, (mod, attr) in counters.items()}
+        peaks[phase] = torch.cuda.max_memory_allocated()
+        log(f"phase {phase} done in {time.monotonic() - t0:.1f} s, peak "
+            f"{peaks[phase]} bytes, launches {by_phase[phase]}")
     shutil.rmtree(root, ignore_errors=True)
+    report["serve_dense"]["peak"] = peaks["serve_dense"]
+    report["serve_moe"]["peak"] = peaks["serve_moe"]
 
     # phase 4: report
     steps = report["step_s"]
@@ -476,8 +696,11 @@ def main() -> int:
     log(f"restore_s: chain 4->2 {report['restore_chain_s']:.4f}, int8 image "
         f"{report['restore_int8_s']:.4f}; init_s {report['init_s']:.4f} "
         f"[{card}]")
-    log(f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes "
-        f"({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    log(f"max_memory_allocated resume {peaks['resume']} bytes "
+        f"({peaks['resume'] / 2**30:.2f} GiB), int8 {peaks['int8']} bytes "
+        f"({peaks['int8'] / 2**30:.2f} GiB) [{card}]")
+    report_serve("serve_dense", cfg, dense_rc, 8, report["serve_dense"], card)
+    report_serve("serve_moe", moe_cfg, moe_rc, 4, report["serve_moe"], card)
     log(f"main-path launches, each phase from 0: {by_phase}")
     for r in rows:
         r["launches_by_phase"] = {p: c[r["name"]] for p, c in by_phase.items()}

@@ -1,17 +1,21 @@
-"""Attention, dense path: GQA projections and causal attention.
+"""Attention: GQA projections, causal and sliding-window attention over
+a sequence, and single-token decode against a KV cache.
 
-Port of `repro.models.attention` (dense self-attention only; sliding
-window, cross attention and decode are listed in ROADMAP.md).  The
-reference's `flash_attention` is chunked pure jnp with a custom VJP (no
-Pallas kernel), so the port writes it as plain PyTorch ops under
-autograd: f32 scores and softmax, probabilities rounded to the compute
-dtype before the value product as in the reference, GQA by grouping the
-query heads (K/V are never repeated).  Its memory is bounded by the
-per-block recompute in `transformer.forward`, not by chunking.
+Port of `repro.models.attention` (self-attention; cross attention is
+listed in ROADMAP.md).  The reference's flash and sliding-window
+attention are chunked pure jnp with custom VJPs (no Pallas kernel), so
+the port writes them as plain PyTorch ops under autograd, which stands
+in for the custom backward: f32 scores and softmax, probabilities
+rounded to the compute dtype before the value product as in the
+reference, GQA by grouping the query heads (K/V are never repeated).
+Both loop over blocks of `chunk` queries, so the score tensor of one
+call is O(chunk) rows, never (S, T); in training the per-block
+recompute of `transformer.forward` bounds what autograd keeps.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.layers import _dense_init, apply_rope
 
@@ -90,29 +94,136 @@ def _group(q, n_kv: int):
     return q.reshape(B, S, n_kv, H // n_kv, hd)
 
 
+def _scale(q):
+    hd = q.shape[-1]
+    return (1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))).to(
+        dtype=q.dtype, device=q.device)
+
+
+def _attend(qg, k, v, keep, dtype):
+    """One block of queries against its keys, one softmax pass.
+
+    qg: (B,c,K,G,hd) scaled queries; k, v: (B,t,K,hd) f32; keep: (c,t)
+    bool or None.  Scores and the normaliser are f32, the unnormalised
+    probabilities are rounded to `dtype` before the value product,
+    which accumulates in f32."""
+    s = torch.einsum("bckgh,btkh->bckgt", qg.to(torch.float32), k)
+    if keep is not None:
+        s = s.masked_fill(~keep[None, :, None, None, :], NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).to(dtype)
+    l = p.to(torch.float32).sum(dim=-1)                     # (B,c,K,G)
+    acc = torch.einsum("bckgt,btkh->bckgh", p.to(torch.float32), v)
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
+
+
 def flash_attention(q, k, v, *, causal: bool, chunk: int = 128):
     """q: (B,S,H,hd); k,v: (B,T,K,hd) -> (B,S,H,hd).
 
-    The reference's online softmax over `chunk`-wide key blocks is, in
-    exact arithmetic, this single pass over all T keys; `chunk` is kept
-    for the signature.  As there: q is scaled in its own dtype, scores
-    and the softmax normaliser are f32, the unnormalised probabilities
-    are rounded to q's dtype before the value product, which
-    accumulates in f32."""
+    Blocks of `chunk` queries, each against all T keys: the reference's
+    online softmax over key blocks is, in exact arithmetic, this single
+    pass over every key of a query row.  As there, q is scaled in its
+    own dtype.  Memory O(B * chunk * H * T) for the scores."""
     B, S, H, hd = q.shape
     K, T = k.shape[2], k.shape[1]
-    scale = (1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))).to(q.dtype)
-    qg = _group(q * scale.to(q.device), K)                  # (B,S,K,G,hd)
-    s = torch.einsum("bskgh,btkh->bskgt", qg.to(torch.float32),
-                     k.to(torch.float32))
-    if causal:
-        keep = (torch.arange(S, device=q.device)[:, None]
-                >= torch.arange(T, device=q.device)[None, :])
-        s = s.masked_fill(~keep[None, :, None, None, :], NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m).to(q.dtype)
-    l = p.to(torch.float32).sum(dim=-1)                     # (B,S,K,G)
-    acc = torch.einsum("bskgt,btkh->bskgh", p.to(torch.float32),
-                       v.to(torch.float32))
-    o = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    qg = _group(q * _scale(q), K)                           # (B,S,K,G,hd)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    chunk = max(1, min(chunk, S))
+    tpos = torch.arange(T, device=q.device)
+    outs = []
+    for i in range(0, S, chunk):
+        c = min(chunk, S - i)
+        keep = None
+        if causal:
+            keep = (torch.arange(i, i + c, device=q.device)[:, None]
+                    >= tpos[None, :])
+        outs.append(_attend(qg[:, i:i + c], kf, vf, keep, q.dtype))
+    o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return o.reshape(B, S, H, hd)
+
+
+def _fit_chunk(total: int, chunk: int) -> int:
+    """Largest divisor of `total` that is <= `chunk`."""
+    chunk = min(chunk, total)
+    while total % chunk:
+        chunk -= 1
+    return chunk
+
+
+def _swa_mask(start: int, window: int, chunk: int, span: int, device):
+    qpos = start + torch.arange(chunk, device=device)
+    tpos = start - window + torch.arange(span, device=device)
+    diff = qpos[:, None] - tpos[None, :]
+    return (diff >= 0) & (diff < window) & (tpos[None, :] >= 0)
+
+
+def sliding_window_attention(q, k, v, *, window: int, chunk: int = 128):
+    """Causal SWA: O(S * window) compute, O(chunk * (window + chunk))
+    scores per block.  k/v are padded by `window` in front; block i of
+    queries attends to its `window + chunk` key span."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    chunk = _fit_chunk(S, chunk)
+    span = window + chunk
+    qg = _group(q * _scale(q), K)
+    kp = F.pad(k.to(torch.float32), (0, 0, 0, 0, window, 0))
+    vp = F.pad(v.to(torch.float32), (0, 0, 0, 0, window, 0))
+    outs = []
+    for start in range(0, S, chunk):
+        keep = _swa_mask(start, window, chunk, span, q.device)
+        outs.append(_attend(qg[:, start:start + chunk],
+                            kp[:, start:start + span],
+                            vp[:, start:start + span], keep, q.dtype))
+    o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return o.reshape(B, S, H, hd)
+
+
+# ==========================================================================
+# Single-token decode against a KV cache
+# ==========================================================================
+
+
+def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
+    """q: (B,1,H,hd); caches: (B,T,K,hd) (T = capacity; ring iff
+    window > 0) -> (B,1,H,hd).
+
+    `pos` (an int) is the position of the new token, already written to
+    the cache.  Keys in the cache are stored post-RoPE.  Ring slot s
+    holds position pos - ((pos - s) mod T), with a non-negative mod."""
+    B, _, H, hd = q.shape
+    K, T = k_cache.shape[2], k_cache.shape[1]
+    qg = _group(q * _scale(q), K)[:, 0]                     # (B,K,G,hd)
+    s = torch.einsum("bkgh,btkh->bkgt", qg.to(torch.float32),
+                     k_cache.to(torch.float32))
+    slots = torch.arange(T, device=q.device)
+    if window:
+        slot_pos = pos - torch.remainder(pos - slots, T)
+        valid = (slot_pos >= 0) & (slot_pos > pos - window)
+    else:
+        valid = slots <= pos
+    s = s.masked_fill(~valid[None, None, None, :], NEG_INF)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgt,btkh->bkgh", w.to(torch.float32),
+                     v_cache.to(torch.float32)).to(q.dtype)
+    return o.reshape(B, 1, H, hd)
+
+
+def write_slot_(k_cache, v_cache, k_new, v_new, pos: int,
+                window: int = 0) -> None:
+    """In place: one token's (already-RoPE'd) K/V into slot `pos` (ring
+    slot pos mod T iff SWA; else pos, which must be below the capacity
+    T).  A slice at a host integer: deterministic on CUDA."""
+    T = k_cache.shape[1]
+    slot = pos % T if window else pos
+    if not 0 <= slot < T:
+        raise ValueError(f"KV cache full: position {pos}, capacity {T}")
+    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+
+
+def cache_write(k_cache, v_cache, k_new, v_new, pos, window: int = 0):
+    """Functional, as the reference: new caches with one token's K/V
+    written at `pos`; the given caches are left as they were."""
+    k_cache, v_cache = k_cache.clone(), v_cache.clone()
+    write_slot_(k_cache, v_cache, k_new, v_new, int(pos), window)
+    return k_cache, v_cache

@@ -1,14 +1,22 @@
-"""Model assembly, dense decoder branch: init, forward, forward_loss.
+"""Model assembly for dense and MoE decoders: init, forward,
+forward_loss, and the serving entry points prefill and decode_step.
 
-Port of `repro.models.transformer` for the dense family (GQA, optional
-QKV bias, RoPE, SwiGLU, tied or untied head).  Parameter names, shapes,
-dtypes and the logical-axes tree are the reference's: blocks are stacked
-on a leading (L, ...) layer axis and heads are stored padded
-(`cfg.n_heads_padded`, `cfg.n_kv_heads_padded`), so every flattened
-leaf path (`params/blocks/attn/wq`, ...) is the same in both packages
-and images move between them.  Other families (MoE, hybrid, rwkv,
-enc-dec, vision cross-attention, sliding window) raise
-`NotImplementedError`; ROADMAP.md queues them.
+Port of `repro.models.transformer` for the dense and moe families (GQA,
+optional QKV bias, RoPE, SwiGLU or routed experts, full causal or
+sliding-window attention, tied or untied head).  Parameter names,
+shapes, dtypes and the logical-axes trees (params and decode state) are
+the reference's: blocks are stacked on a leading (L, ...) layer axis and
+heads are stored padded (`cfg.n_heads_padded`, `cfg.n_kv_heads_padded`),
+so every flattened leaf path (`params/blocks/attn/wq`,
+`decode/layers/k`, ...) is the same in both packages and images move
+between them.  Other families (hybrid ssm, rwkv, enc-dec, vision
+cross-attention) raise `NotImplementedError`; ROADMAP.md queues them.
+
+Decode is functional, as the reference's: `decode_step` returns a new
+state and leaves the one it was given as it was (a live image taken
+between two steps depends on that).  It copies the stacked caches once
+per step and writes the new token's K/V into that copy at a host
+integer slot; `pos` is read to the host once per step.
 
 Remat: with `rc.remat_policy` other than "none", each block runs under
 `torch.utils.checkpoint` (non-reentrant) and saves only its input, the
@@ -17,22 +25,26 @@ reference's "full" policy; the port has no per-name save policies, so
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 
 
-def _require_dense(cfg: ModelConfig) -> None:
+def _require_ported(cfg: ModelConfig) -> None:
+    """Dense and MoE decoders, with or without sliding-window attention,
+    are ported; the other families are not yet."""
     other = [name for name, on in (
-        ("moe", cfg.moe is not None), ("hybrid ssm", cfg.ssm_state),
-        ("rwkv", cfg.rwkv), ("enc-dec", cfg.enc_dec),
-        ("vision cross-attention", cfg.cross_attn_every),
-        ("sliding-window attention", cfg.sliding_window)) if on]
+        ("hybrid ssm", cfg.ssm_state), ("rwkv", cfg.rwkv),
+        ("enc-dec", cfg.enc_dec),
+        ("vision cross-attention", cfg.cross_attn_every)) if on]
     if other:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(other)} is not ported to repro_torch "
@@ -44,9 +56,21 @@ def _require_dense(cfg: ModelConfig) -> None:
 # ==========================================================================
 
 
+def moe_split(cfg: ModelConfig, model_axis: int = 16) -> int:
+    """Virtual-expert split so E*split % model_axis == 0 (the reference's
+    layout, kept so images move between the packages)."""
+    if cfg.moe is None:
+        return 1
+    e = cfg.moe.num_experts
+    if e % model_axis == 0:
+        return 1
+    g = math.gcd(e, model_axis)
+    return model_axis // g
+
+
 def _init_dense_blocks(gen, cfg: ModelConfig, device):
-    """Stacked (L, ...) dense blocks: the reference's vmapped per-layer
-    init, drawn as one tensor per leaf."""
+    """Stacked (L, ...) dense or MoE blocks: the reference's vmapped
+    per-layer init, drawn as one tensor per leaf."""
     n = cfg.n_layers
     params: Dict[str, Any] = {"ln1": L._norm_init((n, cfg.d_model), device),
                               "ln2": L._norm_init((n, cfg.d_model), device)}
@@ -54,8 +78,13 @@ def _init_dense_blocks(gen, cfg: ModelConfig, device):
     params["attn"], logical["attn"] = attn.init_attention(
         gen, cfg.d_model, cfg.n_heads_padded, cfg.n_kv_heads_padded,
         cfg.head_dim, cfg.qkv_bias, device=device, stack=n)
-    params["mlp"], logical["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff,
-                                               device=device, stack=n)
+    if cfg.moe is not None:
+        params["moe"], logical["moe"] = moe_mod.init_moe(
+            gen, cfg.d_model, cfg.d_ff, cfg.moe.num_experts, moe_split(cfg),
+            device=device, stack=n)
+    else:
+        params["mlp"], logical["mlp"] = L.init_mlp(
+            gen, cfg.d_model, cfg.d_ff, device=device, stack=n)
     logical = _prepend_layers(logical)
     return params, logical
 
@@ -69,7 +98,7 @@ def _prepend_layers(logical):
 def init_params(cfg: ModelConfig, generator, device) -> Tuple[Dict, Dict]:
     """Returns (params, logical_axes) trees.  `generator` None (for the
     meta device) makes shapes only."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     params: Dict[str, Any] = {}
     logical: Dict[str, Any] = {}
     params["embed"], logical["embed"] = L.init_embed(
@@ -83,29 +112,48 @@ def init_params(cfg: ModelConfig, generator, device) -> Tuple[Dict, Dict]:
 
 
 # ==========================================================================
-# Full-sequence block application (train)
+# Full-sequence block application (train / prefill)
 # ==========================================================================
 
 
 def _self_attention_seq(cfg: ModelConfig, rc: RunConfig, p, h, positions,
                         causal: bool):
     q, k, v = attn.qkv_proj(p, h, cfg.rope_theta, positions)
-    o = attn.flash_attention(q, k, v, causal=causal, chunk=rc.attn_chunk)
+    S = h.shape[1]
+    if cfg.sliding_window and causal and cfg.sliding_window < S:
+        o = attn.sliding_window_attention(
+            q, k, v, window=cfg.sliding_window, chunk=rc.attn_chunk)
+    else:
+        o = attn.flash_attention(q, k, v, causal=causal, chunk=rc.attn_chunk)
     o = o * attn.head_mask(cfg, o.device)[None, None, :, None].to(o.dtype)
     return attn.out_proj(p, o), (k, v)
 
 
-def _mixer_block_seq(cfg, rc, rules, p, x, positions, enc_out=None,
-                     causal=True):
-    """One dense block over a full sequence.  Returns (x, aux, cache)."""
+def _ffn(cfg, rules, p, h):
+    """The block's MLP or routed experts -> (y, aux)."""
+    if "moe" in p:
+        return moe_mod.moe_apply(
+            p["moe"], h, num_experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+            split=moe_split(cfg), capacity_factor=cfg.moe.capacity_factor,
+            rules=rules)
+    return L.mlp_apply(p["mlp"], h), {}
+
+
+def _mixer_block_seq(cfg, rc, rules, p, x, positions, causal=True):
+    """One dense/MoE block over a full sequence.
+
+    Returns (x, aux, cache): cache holds what prefill must keep."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     a_out, (k, v) = _self_attention_seq(cfg, rc, p["attn"], h, positions,
                                         causal)
     x = x + a_out
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    y = L.mlp_apply(p["mlp"], h2)
+    y, aux = _ffn(cfg, rules, p, h2)
     x = x + y
-    return x, {}, {"k": k, "v": v}
+    # prefill KV cache: SWA keeps the last `window` positions (ring layout)
+    if cfg.sliding_window and causal:
+        k, v = k[:, -cfg.sliding_window:], v[:, -cfg.sliding_window:]
+    return x, aux, {"k": k, "v": v}
 
 
 def _layer_params(blocks, i: int):
@@ -114,12 +162,13 @@ def _layer_params(blocks, i: int):
     return blocks[i]
 
 
-def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch):
+def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
+            want_cache: bool = False):
     """Full-sequence forward.  batch: tokens (B,S).
 
-    Returns (hidden (B,S,d), aux-losses, None): the reference's prefill
-    caches come with serving, which is not ported."""
-    _require_dense(cfg)
+    Returns (hidden (B,S,d), aux-losses, caches | None); caches are
+    {"k", "v"} stacked (L, B, T, K, hd)."""
+    _require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     dtype = getattr(torch, rc.dtype)
@@ -129,19 +178,30 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch):
     # grads in one pass instead of L full-size scatters
     blocks = _unbind_layers(params["blocks"])
 
-    def block(x, p):
-        return _mixer_block_seq(cfg, rc, rules, p, x, positions)[0]
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
+    def block(x, p):
+        x, aux, cache = _mixer_block_seq(cfg, rc, rules, p, x, positions)
+        return x, aux.get("moe_aux", zero), cache
+
+    moe_aux = zero
+    caches = []
     for i in range(cfg.n_layers):
         p = _layer_params(blocks, i)
-        if rc.remat_policy == "none":
-            x = block(x, p)
+        if want_cache or rc.remat_policy == "none":
+            x, a, cache = block(x, p)
+            if want_cache:
+                caches.append(cache)
         else:
-            x = checkpoint(block, x, p, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, a = checkpoint(lambda x, p: block(x, p)[:2], x, p,
+                              use_reentrant=False, preserve_rng_state=False)
+        moe_aux = moe_aux + a
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
-    return x, aux, None
+    stacked = None
+    if want_cache:
+        stacked = {key: torch.stack([c[key] for c in caches])
+                   for key in ("k", "v")}
+    return x, {"moe_aux": moe_aux}, stacked
 
 
 def _unbind_layers(tree):
@@ -151,7 +211,8 @@ def _unbind_layers(tree):
 
 
 def forward_loss(params, cfg, rc, rules, batch):
-    """Next-token cross entropy (sequence-chunked; no (B,S,V) tensor)."""
+    """Next-token cross entropy (sequence-chunked; no (B,S,V) tensor),
+    plus 0.01 * the mean MoE load-balance loss for MoE configs."""
     x, aux, _ = forward(params, cfg, rc, rules, batch)
     head = L.head_matrix(params["embed"])
     mask = batch.get("mask")
@@ -162,5 +223,106 @@ def forward_loss(params, cfg, rc, rules, batch):
                                       rc.loss_chunk,
                                       valid_vocab=cfg.vocab_size)
     loss = tot / torch.clamp(cnt, min=1.0)
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux["moe_aux"] / cfg.n_layers
     return loss, {"xent": tot / torch.clamp(cnt, min=1.0),
                   "moe_aux": aux["moe_aux"]}
+
+
+# ==========================================================================
+# Decode state + single-token decode
+# ==========================================================================
+
+
+def _kv_capacity(cfg: ModelConfig, seq_len: int) -> int:
+    return min(cfg.sliding_window, seq_len) if cfg.sliding_window else seq_len
+
+
+def init_decode_state(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig,
+                      device=None):
+    """Zero-initialized decode caches for a (arch, shape) cell, layout
+    (L, B, T, K, hd), on `device` (None -> cuda, or raises)."""
+    _require_ported(cfg)
+    device = resolve_device(device)
+    T = _kv_capacity(cfg, shape.seq_len)
+    kv_shape = (cfg.n_layers, shape.global_batch, T, cfg.n_kv_heads_padded,
+                cfg.head_dim)
+    dt = getattr(torch, rc.dtype)
+    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
+            "layers": {"k": torch.zeros(kv_shape, dtype=dt, device=device),
+                       "v": torch.zeros(kv_shape, dtype=dt, device=device)}}
+
+
+def decode_state_logical(cfg: ModelConfig):
+    """Logical axes for the decode state (for the checkpoint manifest)."""
+    _require_ported(cfg)
+    kv = (None, "batch", "cache_time", "kv_heads", None)
+    return {"pos": (), "layers": {"k": kv, "v": kv}}
+
+
+def _decode_mixer_block(cfg, rc, rules, p, x, lcache, pos: int):
+    """One block, one token.  Writes the token's K/V into `lcache` (this
+    layer's slices of the step's own copy of the caches) in place."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                           device=x.device)
+    q, k, v = attn.qkv_proj(p["attn"], h, cfg.rope_theta, positions)
+    attn.write_slot_(lcache["k"], lcache["v"], k, v, pos, cfg.sliding_window)
+    o = attn.decode_attention(q, lcache["k"], lcache["v"], pos,
+                              cfg.sliding_window)
+    o = o * attn.head_mask(cfg, o.device)[None, None, :, None].to(o.dtype)
+    x = x + attn.out_proj(p["attn"], o)
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    y, _ = _ffn(cfg, rules, p, h2)
+    return x + y
+
+
+def _logits(params, cfg, x):
+    head = L.head_matrix(params["embed"])
+    logits = torch.einsum("...d,dv->...v", x, head.to(x.dtype))
+    vmask = L.vocab_logit_mask(head.shape[-1], cfg.vocab_size, x.device)
+    if vmask is not None:
+        logits = logits + vmask.to(logits.dtype)
+    return logits
+
+
+def decode_step(params, cfg: ModelConfig, rc: RunConfig, rules, state, token):
+    """One decode step. token: (B,1) int -> (logits (B,1,V), new state).
+
+    The given state is left as it was."""
+    _require_ported(cfg)
+    dtype = getattr(torch, rc.dtype)
+    x = L.embed_apply(params["embed"], token, dtype)
+    pos = int(state["pos"])              # the step's one host copy of pos
+    caches = {key: state["layers"][key].clone() for key in ("k", "v")}
+    for i in range(cfg.n_layers):
+        x = _decode_mixer_block(cfg, rc, rules,
+                                _layer_params(params["blocks"], i), x,
+                                {key: c[i] for key, c in caches.items()}, pos)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return _logits(params, cfg, x), {"pos": state["pos"] + 1,
+                                     "layers": caches}
+
+
+# ==========================================================================
+# Prefill: full forward that also emits decode caches
+# ==========================================================================
+
+
+def prefill(params, cfg: ModelConfig, rc: RunConfig, rules, batch):
+    """Process a full prompt; return (last-token logits (B,V), decode
+    state)."""
+    S = batch["tokens"].shape[1]
+    if cfg.sliding_window and S % min(cfg.sliding_window, S):
+        raise ValueError(
+            "prefill length must be a multiple of the SWA window so ring "
+            "slots align (slot = pos % window)")
+    x, _, layers = forward(params, cfg, rc, rules, batch, want_cache=True)
+    logits = _logits(params, cfg, x[:, -1])
+    if not cfg.sliding_window:
+        # full-attention KV caches need headroom for subsequent decodes
+        # (the time axis is ndim-3 of (L, B, T, K, hd))
+        layers = {key: torch.nn.functional.pad(
+            c, (0, 0, 0, 0, 0, rc.decode_margin)) for key, c in layers.items()}
+    pos = torch.tensor(S, dtype=torch.int32, device=x.device)
+    return logits, {"pos": pos, "layers": layers}

@@ -1,10 +1,12 @@
-"""train_step factory plus state assembly (port of
-`repro.training.step`, dense training path).
+"""train_step and serve_step factories plus state assembly (port of
+`repro.training.step` for dense and MoE decoders).
 
-The returned step function is a (state, batch) -> (state, metrics)
-transition over plain trees of tensors, so the MANA runtime interposes
-at step boundaries (the hybrid-2PC safe point) without touching model
-code.  PyTorch runs eagerly: there is no jit, and no mesh.
+The returned step functions are transitions over plain trees of
+tensors ((state, batch) -> (state, metrics) for training, (params,
+decode state, token) -> (logits, decode state) for serving), so the
+MANA runtime interposes at step boundaries (the hybrid-2PC safe point)
+and a decode state is upper-half state an image can hold as it is.
+PyTorch runs eagerly: there is no jit, and no mesh.
 """
 from __future__ import annotations
 
@@ -52,3 +54,19 @@ def make_train_step(cfg: ModelConfig, rc: RunConfig, rules=None):
                 out_metrics)
 
     return train_step
+
+
+def make_serve_steps(cfg: ModelConfig, rc: RunConfig, rules=None):
+    """(prefill_step(params, batch) -> (logits, state),
+    serve_step(params, state, token) -> (logits, state)), both without
+    autograd."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        return T.prefill(params, cfg, rc, rules, batch)
+
+    @torch.no_grad()
+    def serve_step(params, state, token):
+        return T.decode_step(params, cfg, rc, rules, state, token)
+
+    return prefill_step, serve_step

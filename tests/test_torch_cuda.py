@@ -1,11 +1,17 @@
-"""The port's kernels and runtime on a CUDA card: each kernel bit for bit
-against its plain PyTorch version, launch counting, and a bit-identical
-resume through MANARuntime.  Marked `cuda`; without a card every test
-skips.  Run on the card with
+"""The port's kernels, runtime and serving path on a CUDA card: each
+kernel bit for bit against its plain PyTorch version, launch counting,
+a bit-identical resume through MANARuntime, and serving with live
+decode-state images (bit-identical continuation after a delta-chain
+restore, the SWA ring wrap, MoE capacity drops, the checksum and XOR
+launches of a decode-state image).  Marked `cuda`; without a card every
+test skips.  Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: none (kernels and resume are compared bit for bit).
+Tolerance: none for kernels, resume and the restore continuation (bit
+for bit); card against CPU in float32 (ring wrap, MoE): rtol 1e-4 with
+an absolute floor of 1e-4 of the largest magnitude (other summation
+orders, as tests/test_torch_model.py).
 """
 import numpy as np
 import pytest
@@ -19,6 +25,7 @@ from repro_torch.kernels.delta import ops as dops
 from repro_torch.kernels.delta import ref as dref
 from repro_torch.kernels.quantize import ops as qops
 from repro_torch.kernels.quantize import ref as qref
+from repro_torch.tree import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +124,133 @@ def test_runtime_resume_on_card(dev, tmp_path):
             [h["loss"] for h in hist][2:4]
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+# ---------------------------------------------------------------------------
+# serving on the card
+# ---------------------------------------------------------------------------
+
+def _serve(dev, dtype="bfloat16"):
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.step import make_serve_steps
+
+    cfg = reduced_config(ARCHS["mixtral-8x7b"])      # MoE + SWA 32
+    rc = RunConfig(model=cfg, shape=ShapeConfig("s", 64, 2, "prefill"),
+                   attn_chunk=16, dtype=dtype)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    params, _ = init_params(cfg, gen, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                         dtype=torch.int32)
+    return (cfg, rc, make_serve_steps(cfg, rc),
+            tree_map(lambda t: t.to(dev), params), params, toks)
+
+
+def test_serve_restore_continuation_on_card(dev, tmp_path):
+    """Images at token 6 (full) and 10 (XOR delta); a fresh manager
+    restores 10 through the chain on the card; tokens 11-15 and their
+    logits equal the uninterrupted run bit for bit.  The writes and the
+    restore launch the checksum and XOR kernels."""
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.models.transformer import decode_state_logical
+
+    cfg, rc, (prefill, serve), params, _, toks = _serve(dev)
+    torch.use_deterministic_algorithms(True)
+    try:
+        logits, st = prefill(params, {"tokens": toks.to(dev)})
+        mgr = CheckpointManager(str(tmp_path), delta_keys=("decode",),
+                                device=dev)
+        c0, x0 = cops.launches, dops.launches
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        outs, gen = [], []
+        for i in range(16):
+            logits, st = serve(params, st, tok)
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            outs.append(logits)
+            gen.append(tok)
+            if i in (6, 10):
+                mgr.save(i, {"decode": st},
+                         {"decode": decode_state_logical(cfg)})
+        restored, _ = CheckpointManager(str(tmp_path), device=dev).restore(10)
+        assert cops.launches > c0 and dops.launches > x0
+        st2, tok2 = restored["decode"], gen[10]
+        assert st2["layers"]["k"].device.type == torch.device(dev).type
+        for i in range(11, 16):
+            logits2, st2 = serve(params, st2, tok2)
+            tok2 = torch.argmax(logits2[:, -1], -1).to(torch.int32)[:, None]
+            assert torch.equal(logits2, outs[i]) and torch.equal(tok2, gen[i])
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _f32_close(a, b):
+    a, b = a.float().cpu().numpy(), b.float().cpu().numpy()
+    np.testing.assert_allclose(a, b, rtol=1e-4,
+                               atol=1e-4 * float(np.abs(b).max()))
+
+
+def test_ring_wrap_on_card(dev):
+    """Prefill of 64 tokens over a window of 32, then decodes at 64-67
+    write ring slots 0-3: the card agrees with the CPU (float32)."""
+    cfg, rc, (prefill, serve), params, cpu_params, toks = _serve(
+        dev, "float32")
+    lc, sc = prefill(cpu_params, {"tokens": toks})
+    lg, sg = prefill(params, {"tokens": toks.to(dev)})
+    _f32_close(lg, lc)
+    for i in range(4):
+        tok = toks[:, i:i + 1]
+        lc, sc = serve(cpu_params, sc, tok)
+        lg, sg = serve(params, sg, tok.to(dev))
+        _f32_close(lg, lc)
+        for key in ("k", "v"):
+            _f32_close(sg["layers"][key], sc["layers"][key])
+    assert sg["layers"]["k"].shape[2] == cfg.sliding_window
+    assert int(sg["pos"]) == 68
+
+
+def test_moe_capacity_drop_on_card(dev):
+    """A capacity of 4 per 32-token group drops tokens: the card drops
+    the same ones (integer cumsum) and agrees with the CPU (float32)."""
+    from repro_torch.models.moe import init_moe, moe_apply
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    p, _ = init_moe(gen, 16, 32, 4, 2, device="cpu")
+    x = torch.randn(2, 16, 16, generator=gen)
+    kw = dict(num_experts=4, top_k=2, split=2, capacity_factor=0.25,
+              group_size=32)
+    torch.use_deterministic_algorithms(True)
+    try:
+        yg, ag = moe_apply({k: v.to(dev) for k, v in p.items()}, x.to(dev),
+                           **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    yc, ac = moe_apply(p, x, **kw)
+    dropped = (yc == 0).all(-1)
+    assert dropped.any()
+    assert torch.equal((yg.cpu() == 0).all(-1), dropped)
+    _f32_close(yg, yc)
+    _f32_close(ag["moe_aux"], ac["moe_aux"])
+
+
+def test_decode_state_image_launches_kernels(dev, tmp_path):
+    """A decode-state image digests every chunk on the card (checksum);
+    a delta image XORs every leaf against its base (XOR); the restore
+    verifies and applies them again."""
+    from repro_torch.core.checkpoint import CheckpointManager
+
+    cfg, rc, (prefill, serve), params, _, toks = _serve(dev)
+    _, st = prefill(params, {"tokens": toks.to(dev)})
+    mgr = CheckpointManager(str(tmp_path), delta_keys=("decode",), device=dev)
+    c0, x0 = cops.launches, dops.launches
+    mgr.save(1, {"decode": st})
+    assert cops.launches == c0 + 3 and dops.launches == x0   # k, v, pos
+    _, st2 = serve(params, st, toks[:, :1].to(dev))
+    mgr.save(2, {"decode": st2})
+    # base read back and verified (3) + delta chunks digested (3); 3 XORs
+    assert cops.launches == c0 + 9 and dops.launches == x0 + 3
+    got, _ = mgr.restore(2)
+    assert cops.launches == c0 + 15 and dops.launches == x0 + 6
+    for key in ("k", "v"):
+        assert torch.equal(got["decode"]["layers"][key], st2["layers"][key])
+    assert int(got["decode"]["pos"]) == 65

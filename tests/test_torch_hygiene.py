@@ -41,6 +41,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert len(names) > 40, names\n"
+        "for m in ('repro_torch.models.moe', 'repro_torch.models.attention',\n"
+        "          'repro_torch.examples.serve_with_snapshot'):\n"
+        "    assert m in names, m\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))

@@ -226,3 +226,143 @@ def test_convert_round_trip(model):
     for (p, a), (q, b) in zip(_paths(params), _paths(back)):
         assert p == q and a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# MoE + sliding-window training path (reduced Mixtral)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_swa_forward_loss_and_grads_match_reference(dtype):
+    """Reduced Mixtral (4 experts top-2 in the virtual layout, SWA 32 over
+    64 tokens, so the sliding-window path runs): loss including the
+    0.01 * moe_aux / L term, the aux itself, and every gradient, at the
+    tolerances of this file."""
+    jcfg = jreduced(JARCHS["mixtral-8x7b"])
+    cfg = reduced_config(ARCHS["mixtral-8x7b"])
+    S = 64
+    assert cfg.sliding_window < S
+    params, _ = jT.init_params(jcfg, jax.random.PRNGKey(5))
+    params = jax.tree.map(np.asarray, params)
+    ours, logical = T.init_params(cfg, None, "meta")
+    _, jlogical = jT.init_params(jcfg, jax.random.PRNGKey(0))
+    assert logical == jlogical
+    assert {p: tuple(t.shape) for p, t in _paths(ours)} == \
+        {p: a.shape for p, a in _paths(params)}
+    shape = ShapeConfig("t", S, BATCH, "train")
+    kw = dict(loss_chunk=32, attn_chunk=16)
+    jshape = JShape("t", S, BATCH, "train")
+    batch = SyntheticDataset(cfg, shape, seed=2).get_batch(0)
+    jparams = jax.tree.map(jnp.asarray, params)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def jgrad(dt):
+        run = JRunConfig(model=jcfg, shape=jshape, dtype=dt, **kw)
+        return jax.value_and_grad(
+            lambda p: jT.forward_loss(p, jcfg, run, None, jbatch),
+            has_aux=True)(jparams)
+
+    (jloss, jm), jgrads = jgrad(dtype)
+    tparams = state_from_numpy(params, "cpu")
+    leaves = [p.requires_grad_(True) for p in tree_leaves(tparams)]
+    rc = RunConfig(model=cfg, shape=shape, dtype=dtype, **kw)
+    loss, metrics = T.forward_loss(
+        tparams, cfg, rc, None, {k: torch.from_numpy(v)
+                                 for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, leaves)
+    _close(_tnp(loss), _jnp(jloss), dtype)
+    _close(_tnp(metrics["moe_aux"]), _jnp(jm["moe_aux"]), dtype)
+    _close(_tnp(metrics["xent"]), _jnp(jm["xent"]), dtype)
+    assert float(metrics["moe_aux"].detach()) > 0
+    jflat = dict(_paths(state_to_numpy_j(jgrads)))
+    tflat = [p for p, _ in _paths(tparams)]
+    assert sorted(jflat) == tflat
+    if dtype == "float32":
+        for path, g in zip(tflat, grads):
+            _close(_tnp(g), jflat[path], dtype)
+    else:
+        exact = dict(_paths(state_to_numpy_j(jgrad("float32")[1])))
+        for path, g in zip(tflat, grads):
+            ours_err = _rel(_tnp(g), exact[path])
+            theirs = _rel(jflat[path], exact[path])
+            assert ours_err <= 1.25 * theirs + 1e-2, (path, ours_err, theirs)
+
+
+# ---------------------------------------------------------------------------
+# repairs: bf16 leaves through convert, chunked flash attention
+# ---------------------------------------------------------------------------
+
+def test_convert_carries_bf16_both_ways():
+    """bf16 leaves cross bit for bit, without ml_dtypes in the port:
+    numpy (ml_dtypes) -> tensor, and tensor -> uint16 bit pattern or the
+    caller's bfloat16 dtype."""
+    rng = np.random.RandomState(8)
+    x = jnp.asarray(rng.randn(3, 5, 7) * 100.0, jnp.bfloat16)
+    x = x.at[0, 0, :3].set(jnp.asarray([jnp.inf, -0.0, 1e-40], jnp.bfloat16))
+    tree = {"layers": {"k": np.asarray(x)}, "pos": np.int32(9)}
+    t = state_from_numpy(tree, "cpu")
+    assert t["layers"]["k"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        t["layers"]["k"].view(torch.int16).numpy().view(np.uint16),
+        np.asarray(x).view(np.uint16))
+    back = state_to_numpy(t)
+    assert back["layers"]["k"].dtype == np.uint16
+    np.testing.assert_array_equal(back["layers"]["k"],
+                                  np.asarray(x).view(np.uint16))
+    typed = state_to_numpy(t, bfloat16=jnp.bfloat16)
+    assert typed["layers"]["k"].dtype.name == "bfloat16"
+    np.testing.assert_array_equal(typed["layers"]["k"].view(np.uint16),
+                                  np.asarray(x).view(np.uint16))
+    assert typed["pos"].dtype == np.int32 and typed["pos"].shape == ()
+    # a port tensor -> numpy -> JAX array keeps its bits
+    y = torch.randn(4, 6).to(torch.bfloat16)
+    j = jnp.asarray(state_to_numpy({"y": y}, bfloat16=jnp.bfloat16)["y"])
+    np.testing.assert_array_equal(np.asarray(j).view(np.uint16),
+                                  y.view(torch.int16).numpy().view(np.uint16))
+
+
+def _single_pass_attention(q, k, v):
+    """The port's flash attention before it honoured `chunk`: one pass of
+    all S queries against all T keys (causal)."""
+    B, S, H, hd = q.shape
+    K, T_ = k.shape[2], k.shape[1]
+    scale = (1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))).to(
+        q.dtype)
+    qg = (q * scale).reshape(B, S, K, H // K, hd)
+    s = torch.einsum("bskgh,btkh->bskgt", qg.float(), k.float())
+    keep = torch.arange(S)[:, None] >= torch.arange(T_)[None, :]
+    s = s.masked_fill(~keep[None, :, None, None, :], attn.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True)).to(q.dtype)
+    acc = torch.einsum("bskgt,btkh->bskgh", p.float(), v.float())
+    o = acc / torch.clamp(p.float().sum(-1), min=1e-30)[..., None]
+    return o.to(q.dtype).reshape(B, S, H, hd)
+
+
+def test_flash_attention_honours_chunk():
+    """Blocks of `chunk` queries give the single-pass result to f32
+    rounding at S = 4 * chunk, and no tensor of the call is larger than
+    one block's scores (B * chunk * H * T), a quarter of the full
+    (B, S, H, T) score tensor."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Largest(TorchDispatchMode):
+        numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    Largest.numel = max(Largest.numel, t.numel())
+            return out
+
+    rng = np.random.RandomState(9)
+    B, chunk, H, K, hd = 2, 16, 4, 2, 8
+    S = 4 * chunk
+    q, k, v = (torch.from_numpy(rng.randn(B, S, n, hd).astype(np.float32))
+               for n in (H, K, K))
+    with Largest():
+        got = attn.flash_attention(q, k, v, causal=True, chunk=chunk)
+    np.testing.assert_allclose(got.numpy(),
+                               _single_pass_attention(q, k, v).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    assert Largest.numel == B * chunk * H * S < B * S * H * S

@@ -287,3 +287,136 @@ def test_same_state_writes_identical_images(tmp_path):
                 continue
             assert open(os.path.join(dp, name), "rb").read() == \
                 open(os.path.join(dj, name), "rb").read(), name
+
+
+# ---------------------------------------------------------------------------
+# decode-state images across packages (bf16 caches, 0-d int32 pos)
+# ---------------------------------------------------------------------------
+
+def _jax_decode_states(n=2):
+    """Reduced Mixtral (MoE + SWA): the JAX package's decode states after
+    prefill + 1 and prefill + 2 decode steps, and its numpy params."""
+    import jax.numpy as jnp
+
+    from repro.models import transformer as jT
+    from repro.training.step import make_serve_steps as jmake
+
+    jcfg = jreduced(JARCHS["mixtral-8x7b"])
+    jrc = JRunConfig(model=jcfg, shape=JShape("s", 64, 2, "prefill"),
+                     loss_chunk=32, attn_chunk=16)
+    params, _ = jT.init_params(jcfg, jax.random.PRNGKey(0))
+    prefill, serve = (jax.jit(f) for f in jmake(jcfg, jrc, None))
+    toks = np.random.RandomState(4).randint(0, jcfg.vocab_size, (2, 66))
+    _, st = prefill(params, {"tokens": jnp.asarray(toks[:, :64], jnp.int32)})
+    states = []
+    for i in range(n):
+        _, st = serve(params, st, jnp.asarray(toks[:, 64 + i:65 + i],
+                                              jnp.int32))
+        states.append(jax.tree.map(np.asarray, st))
+    return jT.decode_state_logical(jcfg), states, jax.tree.map(np.asarray,
+                                                               params)
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+
+
+def _assert_same_decode_state(got, want):
+    """got: the port's tensors; want: numpy (bf16 as ml_dtypes)."""
+    ours = state_to_numpy(got)
+    assert ours["pos"].shape == () and ours["pos"].dtype == np.int32
+    assert int(ours["pos"]) == int(want["pos"])
+    for key in ("k", "v"):
+        assert got["layers"][key].dtype.__str__() == "torch.bfloat16"
+        assert np.asarray(want["layers"][key]).dtype.name == "bfloat16"
+        np.testing.assert_array_equal(ours["layers"][key],
+                                      _bits(want["layers"][key]))
+
+
+def test_jax_decode_image_restores_in_port(tmp_path):
+    """JAX images of a decode state (full, then an XOR delta on it)
+    restore in the port bit for bit: bf16 caches and the 0-d pos."""
+    logical, states, _ = _jax_decode_states()
+    jmgr = JCheckpointManager(str(tmp_path), delta_keys=("decode",))
+    for step, st in enumerate(states, 1):
+        jmgr.save(step, {"decode": st}, {"decode": logical})
+    with open(os.path.join(jmgr.step_dir(2), "manifest.json")) as f:
+        arrays = json.load(f)["arrays"]
+    assert arrays["decode/layers/k"]["dtype"] == "bfloat16"
+    assert arrays["decode/layers/k"]["base_step"] == 1
+    assert arrays["decode/pos"]["shape"] == []
+    mgr = CheckpointManager(str(tmp_path), device="cpu")
+    for step, st in enumerate(states, 1):
+        got, _ = mgr.restore(step)
+        _assert_same_decode_state(got["decode"], st)
+
+
+def test_port_decode_image_restores_in_jax(tmp_path):
+    """The port's images of its own decode state (same params and
+    tokens) restore in the JAX manager with verify=True bit for bit, and
+    the JAX package decodes on from the restored state."""
+    import jax.numpy as jnp
+
+    from repro.models import transformer as jT
+    from repro_torch.models.transformer import decode_state_logical
+    from repro_torch.training.step import make_serve_steps
+
+    logical, _, params = _jax_decode_states(n=0)
+    cfg = reduced_config(ARCHS["mixtral-8x7b"])
+    rc = RunConfig(model=cfg, shape=ShapeConfig("s", 64, 2, "prefill"),
+                   loss_chunk=32, attn_chunk=16)
+    prefill, serve = make_serve_steps(cfg, rc)
+    tparams = state_from_numpy(params, "cpu")
+    import torch
+
+    toks = torch.from_numpy(np.random.RandomState(4).randint(
+        0, cfg.vocab_size, (2, 66)).astype(np.int32))
+    _, st = prefill(tparams, {"tokens": toks[:, :64]})
+    mgr = CheckpointManager(str(tmp_path), delta_keys=("decode",),
+                            device="cpu")
+    states = []
+    for i in range(2):
+        _, st = serve(tparams, st, toks[:, 64 + i:65 + i])
+        states.append(st)
+        mgr.save(i + 1, {"decode": st}, {"decode": decode_state_logical(cfg)})
+    jmgr = JCheckpointManager(str(tmp_path), verify=True)
+    for step, st in enumerate(states, 1):
+        theirs, _ = jmgr.restore(step)
+        _assert_same_decode_state(st, theirs["decode"])
+    jcfg = jreduced(JARCHS["mixtral-8x7b"])
+    jrc = JRunConfig(model=jcfg, shape=JShape("s", 64, 2, "prefill"),
+                     loss_chunk=32, attn_chunk=16)
+    dec = jax.tree.map(jnp.asarray, theirs["decode"])
+    jl, jst = jT.decode_step(jax.tree.map(jnp.asarray, params), jcfg, jrc,
+                             None, dec, jnp.asarray(toks[:, 65:66].numpy()))
+    tl, _ = serve(tparams, states[-1], toks[:, 65:66])
+    assert int(jst["pos"]) == 67
+    a, b = tl.float().numpy(), np.asarray(jl, np.float32)
+    assert np.linalg.norm(a - b) / np.linalg.norm(b) < 2e-2
+
+
+def test_same_decode_state_writes_identical_images(tmp_path):
+    """One decode state, written by both managers with XOR-delta decode
+    images: identical manifests (but for the timestamp) and identical
+    chunk files, at the full and at the delta step."""
+    logical, states, _ = _jax_decode_states()
+    jmgr = JCheckpointManager(str(tmp_path / "jax"), delta_keys=("decode",))
+    mgr = CheckpointManager(str(tmp_path / "port"), delta_keys=("decode",),
+                            device="cpu")
+    for step, st in enumerate(states, 1):
+        jmgr.save(step, {"decode": st}, {"decode": logical})
+        mgr.save(step, {"decode": state_from_numpy(st, "cpu")},
+                 {"decode": logical})
+    for step in (1, 2):
+        dj, dp = jmgr.step_dir(step), mgr.step_dir(step)
+        mj, mp = (json.load(open(os.path.join(x, "manifest.json")))
+                  for x in (dj, dp))
+        mj.pop("written_at"), mp.pop("written_at")
+        assert mp == mj
+        names = sorted(os.listdir(dj))
+        assert names == sorted(os.listdir(dp))
+        for name in names:
+            if name != "manifest.json":
+                assert open(os.path.join(dp, name), "rb").read() == \
+                    open(os.path.join(dj, name), "rb").read(), name
