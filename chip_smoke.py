@@ -14,7 +14,8 @@ fatal on failure:
      main path's shapes and at edge lengths; device times of kernel,
      plain version and, where one PyTorch call computes the same
      function (`torch.bitwise_xor`, `torch.mul`), that call, beside the
-     bound bytes / 3.35 TB/s;
+     bound bytes / 3.35 TB/s; XOR and `torch.bitwise_xor` also timed
+     call by call in turns (120 each: median, quartiles, range);
   2. main path: full-width qwen2-0.5b through `MANARuntime` on cuda,
      6 steps with an image every 2 (XOR-delta params), then a fresh
      runtime restores step 4 (chain 4 -> 2) and its 2 steps must repeat
@@ -26,10 +27,12 @@ fatal on failure:
   4. report: step times, image bytes, write/restore seconds, peak device
      memory, and one JSON line of the kernels with their launches on the
      main path.  The counts are set to 0 just before each main-path
-     phase (2, 3, serve_dense, serve_moe) and read just after it; each
-     phase must launch the kernels of its path (2: checksum, XOR; 3:
-     checksum, quantize, dequantize; serving: checksum, XOR), and
-     `launches` is their sum.  The peak device memory is reset before
+     phase (2, 3, serve_dense, serve_moe and the world phases) and read
+     just after it, adding the counts that a world phase's spawned
+     socket ranks report from their own processes; each phase must
+     launch the kernels of its path (2: checksum, XOR; 3: checksum,
+     quantize, dequantize; serving: checksum, XOR; world_pipeline and
+     world_cross: XOR), and `launches` is their sum.  The peak device memory is reset before
      each phase and printed per phase.
   serve_dense, serve_moe: the serving path (`make_serve_steps`) with live
      decode-state images.  qwen2-0.5b at full width and depth, 8 prompts
@@ -42,6 +45,19 @@ fatal on failure:
      must equal the first run's tokens and logits bit for bit.  Decode
      after a shorter prefill must agree with a full forward over the
      same tokens (f32, the first 2 layers, norm-relative 1e-3).
+  world_pipeline, world_cross, world_elastic: multi-rank worlds with the
+     rank state on the card, driven through the `multirank_simulation`
+     twin (`src/repro_torch/examples/multirank_simulation.py`): 64 inproc
+     ranks with 16 MiB f32 shards (1 GiB) checkpointed by the async
+     incremental pipeline (a full image, then an XOR delta) and restored
+     onto the card bit for bit; 4 ranks of 64 MiB written over socket
+     (spawned ranks) and restored over inproc, and the reverse, each
+     restored world committing another image; the elastic chaos twin
+     (x of 2^27 float64 on 64 ranks, kill 3 -> 61, kill 1, grow back to
+     64, then the final image restored into 4 socket ranks), every slice
+     bit for bit arange + step.  Each prints its ranks, bytes on the
+     card, image bytes, commit stall, write, restore and phase seconds,
+     and peak device memory.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -96,6 +112,35 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def interleaved_ms(fns, reps: int = 120, warmup: int = 5):
+    """Device times of single calls, the functions taking turns call by
+    call (A, B, A, B, ...) so that both see the same clocks and card
+    state: per function, the sorted list of `reps` times in ms."""
+    import torch
+
+    for _ in range(warmup):
+        for fn in fns:
+            fn()
+    ev = [[(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+          for _ in fns]
+    torch.cuda.synchronize()
+    for i in range(reps):
+        for fn, pairs in zip(fns, ev):
+            pairs[i][0].record()
+            fn()
+            pairs[i][1].record()
+    torch.cuda.synchronize()
+    return [sorted(a.elapsed_time(b) for a, b in pairs) for pairs in ev]
+
+
+def spread(times) -> str:
+    """Median and spread of a sorted list of times: quartiles, range."""
+    q = lambda f: times[min(len(times) - 1, int(f * len(times)))]
+    return (f"median {q(0.5):.4f} ms (quartiles {q(0.25):.4f}-{q(0.75):.4f}, "
+            f"range {times[0]:.4f}-{times[-1]:.4f}, n={len(times)})")
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +209,11 @@ def phase_kernels(card: str):
                            device=dev, generator=gen)
     pairs.append((ragged[:1_000_003], ragged[1_000_003:2_000_006]))
     pairs.append((ragged[1:1_000_004], ragged[1_000_004:]))   # unaligned
+    # the world phases' shards: 16 MiB and 64 MiB of f32 a rank
+    w = torch.randn((CROSS_NUMEL,), generator=gen, device=dev)
+    w2 = w.clone()
+    w2[::97] += 1.0
+    pairs += [(w[:WORLD_NUMEL], w2[:WORLD_NUMEL]), (w, w2)]
     for x, y in pairs:
         k = dops.xor_bytes(x, y)
         p = dref.xor_torch(as_bytes(x), as_bytes(y))
@@ -183,6 +233,19 @@ def phase_kernels(card: str):
     p_ms = device_ms(lambda: dref.xor_torch(ra, rb))
     l_ms = device_ms(lambda: torch.bitwise_xor(ra, rb, out=o))
     nb = 3 * ra.numel()
+    # kernel and library call taking turns, call by call
+    k_t, l_t = interleaved_ms([
+        lambda: _build.check(lib.xor_launch(
+            ra.data_ptr(), rb.data_ptr(), o.data_ptr(), ra.numel(),
+            stream()), "xor"),
+        lambda: torch.bitwise_xor(ra, rb, out=o)])
+    med = lambda t: t[len(t) // 2]
+    iqr = max(k_t[3 * len(k_t) // 4] - k_t[len(k_t) // 4],
+              l_t[3 * len(l_t) // 4] - l_t[len(l_t) // 4])
+    verdict = ("kernel slower by more than the spread"
+               if med(k_t) - med(l_t) > iqr else "level within the spread")
+    log(f"xor interleaved with torch.bitwise_xor: kernel {spread(k_t)}; "
+        f"library {spread(l_t)}; {verdict} [{card}]")
     rows.append(dict(
         name="xor_delta", route="cuda",
         source="src/repro_torch/kernels/delta/csrc/delta.cu",
@@ -190,11 +253,12 @@ def phase_kernels(card: str):
         max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms(nb),
         bound_by="bytes", library_ms=l_ms,
         shape="(151936, 896) f32 pair (embedding leaf)"))
-    log(f"kernel xor_delta: bit-exact on (151936, 896) f32, ragged and "
+    log(f"kernel xor_delta: bit-exact on (151936, 896) f32, the world "
+        f"shards ({WORLD_NUMEL},) and ({CROSS_NUMEL},) f32, ragged and "
         f"unaligned bytes + numpy twin; kernel_ms={k_ms:.4f} "
         f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
         f"bound_ms={bound_ms(nb):.4f} [{card}]")
-    del a, b, ra, rb, o, ragged, pairs
+    del a, b, ra, rb, o, ragged, pairs, w, w2
 
     # -- int8 quantize ----------------------------------------------------
     x = torch.randn((24, 896, 4864), generator=gen, device=dev) * 1e-3
@@ -598,6 +662,172 @@ def report_serve(name: str, cfg, rc, batch: int, r: dict, card: str):
         f"({r['peak'] / 2**30:.2f} GiB) [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# world phases: multi-rank worlds with their rank state on the card
+# ---------------------------------------------------------------------------
+
+WORLD_RANKS, WORLD_NUMEL = 64, 4 << 20       # 16 MiB of f32 a rank: 1 GiB
+CROSS_RANKS, CROSS_NUMEL = 4, 16 << 20       # 64 MiB of f32 a rank
+ELASTIC_RANKS, ELASTIC_KILLS, ELASTIC_G = 64, 3, 1 << 27   # 1 GiB float64
+
+
+def _add_launches(total: dict, more) -> None:
+    for k, v in (more or {}).items():
+        if k != "peak":
+            total[k] = total.get(k, 0) + v
+
+
+def phase_world_pipeline(root: str, report: dict):
+    """64 inproc ranks, a 16 MiB f32 shard each made on the card from its
+    own seed; 9 steps changing 1% of each shard with row allreduces, an
+    async incremental checkpoint every 3 (full, then XOR delta); every
+    rank of the committed image restored onto the card, bit for bit its
+    shard at the cut."""
+    import torch
+
+    from repro_torch.examples import multirank_simulation as twin
+
+    image, m = twin.run_pipeline(WORLD_RANKS, "inproc", WORLD_NUMEL,
+                                 torch.device("cuda"), seed=1, tmpdir=root)
+    if not m["delta_epochs"]:
+        raise AssertionError("world_pipeline committed no delta epoch")
+    _check_card_blobs(image, WORLD_NUMEL, 1, torch.device("cuda"))
+    report.update(m)
+
+
+def _check_card_blobs(image, numel: int, seed: int, dev):
+    """Rank 0's newest blob (an XOR delta) and its base, encoded from
+    the card, are byte for byte `SnapshotCodec.encode` of the same
+    values as CPU tensors, whose bytes the CPU tests tie to the
+    reference's: the restore alone cannot catch a delta kernel that is
+    wrong in a way that undoes itself."""
+    from repro_torch.core.codec import (BASE_EPOCH_KEY, SnapshotCodec,
+                                        snap_meta)
+    from repro_torch.examples import multirank_simulation as twin
+
+    codec = SnapshotCodec()
+    ranks, chains = image["ranks"], image.get("chains", {})
+    blob = ranks.get(0, ranks.get("0"))
+    meta = snap_meta(blob)
+    if meta["encoding"] != "delta":
+        raise AssertionError("world_pipeline: rank 0's newest blob is full")
+    base_epoch = int(meta[BASE_EPOCH_KEY])
+    chain = {int(e): b for e, b in chains.get(0, chains.get("0", {})).items()}
+    base_blob = chain[base_epoch]
+
+    def values(b):
+        extra = codec.decode_extra(b)
+        return extra, twin.pipeline_expected(seed, 0, numel, extra["step"],
+                                             dev).cpu()
+
+    base_extra, base = values(base_blob)
+    extra, cur = values(blob)
+    if codec.encode(base_epoch, {"shard": base}, extra=base_extra) \
+            != bytes(base_blob):
+        raise AssertionError("world_pipeline: full blob from the card != "
+                             "the CPU encode of the same values")
+    if codec.encode(int(meta["epoch"]), {"shard": cur},
+                    base=(base_epoch, {"shard": base}),
+                    extra=extra) != bytes(blob):
+        raise AssertionError("world_pipeline: delta blob from the card != "
+                             "the CPU encode of the same values")
+    log(f"world_pipeline: rank 0's full blob (epoch {base_epoch}) and delta "
+        f"blob (epoch {meta['epoch']}) equal the CPU encode byte for byte")
+
+
+def phase_world_cross(root: str, report: dict):
+    """The same job at 4 ranks with 64 MiB shards: written over socket
+    (spawned ranks, each its own CUDA context) and restored over inproc
+    through `image_to_bytes`, then the reverse; each restored world
+    checks every shard on the card, runs on and commits another image,
+    which the launcher restores and checks too.  Returns the launches
+    made in the socket ranks' own processes."""
+    import torch
+
+    from repro_torch.core.codec import image_to_bytes
+    from repro_torch.examples import multirank_simulation as twin
+
+    dev = torch.device("cuda")
+    extra: dict = {}
+    for a, b in (("socket", "inproc"), ("inproc", "socket")):
+        image, m1 = twin.run_pipeline(CROSS_RANKS, a, CROSS_NUMEL, dev,
+                                      seed=2, tmpdir=root)
+        if not m1["delta_epochs"]:
+            raise AssertionError(f"world_cross over {a}: no delta epoch")
+        t0 = time.monotonic()
+        blob = image_to_bytes(image)
+        _, m2 = twin.run_pipeline(CROSS_RANKS, b, CROSS_NUMEL, dev, seed=2,
+                                  image=blob, steps=twin.PIPE_EVERY + 1,
+                                  tmpdir=root)
+        m2["cross_s"] = time.monotonic() - t0
+        report[f"{a}->{b}"] = (m1, m2)
+        for m in (m1, m2):
+            _add_launches(extra, m["rank_process"])
+    return extra
+
+
+def phase_world_elastic(root: str, report: dict):
+    """The elastic chaos twin on the card: 64 inproc ranks hold x of 2^27
+    float64 (1 GiB); 3 ranks are killed and the job resumes at 61, one
+    more is killed and it grows back to 64; the final committed image is
+    restored into a 4-rank socket world (64 -> 4), every slice
+    bit-identical to the logical arange + step.  Returns the launches
+    made in the socket ranks' own processes."""
+    from repro_torch.examples import multirank_simulation as twin
+
+    args = twin.parse_args([
+        "--elastic", "--ranks", str(ELASTIC_RANKS), "--kills",
+        str(ELASTIC_KILLS), "--elastic-numel", str(ELASTIC_G),
+        "--reshard-to", "4@socket", "--async-ckpt", "--device", "cuda"])
+    transport, specs = twin.restore_specs(args)
+    m = twin.elastic_main(args, transport, specs)
+    report.update(m)
+    extra: dict = {}
+    _add_launches(extra, m["reshard"]["rank_process"])
+    return extra
+
+
+def report_worlds(r: dict, peaks: dict, wall: dict, card: str):
+    p = r["world_pipeline"]
+    log(f"world_pipeline: {p['ranks']} inproc ranks, {p['card_bytes']} bytes "
+        f"of f32 shards on the card; image {p['image_bytes']} bytes (delta "
+        f"epochs {p['delta_epochs']}); commit stall {p['stall_s']:.4f} s, "
+        f"write {p['write_s']:.4f} s (max over ranks), restore of all ranks "
+        f"onto the card {p['restore_s']:.4f} s; phase {wall['world_pipeline']:.2f} s; "
+        f"peak {peaks['world_pipeline']} bytes [{card}]")
+    for k, (m1, m2) in r["world_cross"].items():
+        a, b = k.split("->")
+        log(f"world_cross {k}: {m1['ranks']} ranks, {m1['card_bytes']} bytes "
+            f"on the card; over {a}: image {m1['image_bytes']} bytes (delta "
+            f"epochs {m1['delta_epochs']}), stall {m1['stall_s']:.4f} s, "
+            f"write {m1['write_s']:.4f} s, restore {m1['restore_s']:.4f} s, "
+            f"world {m1['world_s']:.2f} s; restored over {b}: per-rank "
+            f"restore {m2['rank_restore_s']:.4f} s, second image "
+            f"{m2['image_bytes']} bytes, stall {m2['stall_s']:.4f} s, write "
+            f"{m2['write_s']:.4f} s, world {m2['world_s']:.2f} s [{card}]")
+        for m, t in ((m1, a), (m2, b)):
+            if m["rank_process"]:
+                log(f"world_cross {k}: socket rank processes ({t}): "
+                    f"launches {m['rank_process']} [{card}]")
+    e = r["world_elastic"]
+    rs = e["reshard"]
+    log(f"world_elastic: {e['ranks']} inproc ranks, x of {e['G']} float64 "
+        f"({e['card_bytes']} bytes on the card); {e['ranks']} -> "
+        f"{e['ranks'] - ELASTIC_KILLS} -> {e['ranks']} in {e['attempts']} "
+        f"attempts, resume steps {e['resume_steps']}, recovery "
+        f"{e['recovery_s']} s; final attempt: commit stall "
+        f"{e['stall_s']:.4f} s, write {e['write_s']:.4f} s, per-rank slice "
+        f"restore {e['rank_restore_s']:.4f} s; chaos run {e['chaos_s']:.2f} s "
+        f"[{card}]")
+    log(f"world_elastic: final image {rs['image_bytes']} bytes, "
+        f"{rs['n_from']} -> {rs['n_to']} {rs['transport']} ranks, per-rank "
+        f"slice restore {rs['rank_restore_s']:.4f} s, world "
+        f"{rs['world_s']:.2f} s (socket rank peak "
+        f"{rs['rank_process']['peak']} bytes); phase "
+        f"{wall['world_elastic']:.2f} s; launcher peak "
+        f"{peaks['world_elastic']} bytes [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -649,7 +879,8 @@ def main() -> int:
     moe_rc = RunConfig(model=moe_cfg,
                        shape=ShapeConfig("serve_h100", 8192, 4, "prefill"))
     root = tempfile.mkdtemp(prefix="chip_smoke_")
-    report: dict = {"serve_dense": {}, "serve_moe": {}}
+    report: dict = {"serve_dense": {}, "serve_moe": {}, "world_pipeline": {},
+                    "world_cross": {}, "world_elastic": {}}
     counters = {"checksum": (cops, "launches"), "xor_delta": (dops, "launches"),
                 "quantize_int8": (qops, "launches"),
                 "dequantize_int8": (qops, "dequantize_launches")}
@@ -664,20 +895,32 @@ def main() -> int:
         "serve_moe": (lambda: phase_serve(moe_cfg, moe_rc, 4, root,
                                           report["serve_moe"]),
                       ("checksum", "xor_delta")),
+        "world_pipeline": (lambda: phase_world_pipeline(
+            root, report["world_pipeline"]), ("xor_delta",)),
+        "world_cross": (lambda: phase_world_cross(
+            root, report["world_cross"]), ("xor_delta",)),
+        "world_elastic": (lambda: phase_world_elastic(
+            root, report["world_elastic"]), ()),
     }
-    by_phase, peaks = {}, {}
+    by_phase, peaks, wall = {}, {}, {}
     for phase, (drive, _) in paths.items():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
         t0 = time.monotonic()
-        drive()
-        by_phase[phase] = {n: getattr(mod, attr)
+        # a world phase returns the launches of its socket ranks'
+        # processes, which this process's counters cannot see
+        elsewhere = drive() or {}
+        torch.cuda.synchronize()
+        wall[phase] = time.monotonic() - t0
+        by_phase[phase] = {n: getattr(mod, attr) + elsewhere.get(n, 0)
                            for n, (mod, attr) in counters.items()}
         peaks[phase] = torch.cuda.max_memory_allocated()
-        log(f"phase {phase} done in {time.monotonic() - t0:.1f} s, peak "
-            f"{peaks[phase]} bytes, launches {by_phase[phase]}")
+        log(f"phase {phase} done in {wall[phase]:.1f} s, peak "
+            f"{peaks[phase]} bytes, launches {by_phase[phase]}"
+            + (f" (of them in socket rank processes: {elsewhere})"
+               if elsewhere else ""))
     shutil.rmtree(root, ignore_errors=True)
     report["serve_dense"]["peak"] = peaks["serve_dense"]
     report["serve_moe"]["peak"] = peaks["serve_moe"]
@@ -701,6 +944,7 @@ def main() -> int:
         f"({peaks['int8'] / 2**30:.2f} GiB) [{card}]")
     report_serve("serve_dense", cfg, dense_rc, 8, report["serve_dense"], card)
     report_serve("serve_moe", moe_cfg, moe_rc, 4, report["serve_moe"], card)
+    report_worlds(report, peaks, wall, card)
     log(f"main-path launches, each phase from 0: {by_phase}")
     for r in rows:
         r["launches_by_phase"] = {p: c[r["name"]] for p, c in by_phase.items()}

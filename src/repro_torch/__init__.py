@@ -22,10 +22,33 @@ the host (the tests do).  A kernel wrapper decides by its input: a CUDA
 tensor launches the kernel (or raises), a CPU tensor takes the plain
 PyTorch version.
 
+Multi-rank worlds: `repro_torch.comm.transport.harness` runs one rank
+function per rank over the `inproc` (threads) or `socket` (spawned
+processes) transport, checkpoints the world by the hybrid 2PC, and
+supervises it through rank kills and changes of world size; rank state
+may live on the card (`SnapshotCodec` and `IncrementalSnapshotter`
+encode tensors through the XOR and quantize kernels).  The public
+restore and store surface is the reference's: `restore_world(image,
+plan)` with `RestorePlan` and `WorldMismatchError`, and `open_store` for
+the durable `EpochStore` (`EpochFallbackWarning` when a corrupt epoch
+is skipped).
+
 Importing this package does not import torch; the comm and protocol
 layers stay light for socket rank processes.
 """
 from __future__ import annotations
+
+from repro_torch.core.codec import WorldMismatchError
+from repro_torch.core.image_store import (EpochFallbackWarning, EpochStore,
+                                          ImageStore, LocalDirStore,
+                                          StoreFaults, open_store)
+from repro_torch.core.restore import (RestorePlan, RestoredWorld,
+                                      parse_restore_spec, restore_world)
+
+__all__ = ["EpochFallbackWarning", "EpochStore", "ImageStore",
+           "LocalDirStore", "RestorePlan", "RestoredWorld", "StoreFaults",
+           "WorldMismatchError", "open_store", "parse_restore_spec",
+           "resolve_device", "restore_world"]
 
 VERBATIM_COPIES = (
     "comm/__init__.py",
@@ -42,6 +65,8 @@ VERBATIM_COPIES = (
     "core/two_phase_commit.py",
     "core/control.py",
     "core/snapshot_writer.py",
+    "core/restore.py",
+    "core/image_store.py",
     "configs/__init__.py",
     "configs/base.py",
     "configs/hymba_1_5b.py",
@@ -67,6 +92,21 @@ VERBATIM_FUNCTIONS = (
     ("data/pipeline.py", "SyntheticDataset"),
     ("core/checkpoint.py", "_flatten"),
     ("core/checkpoint.py", "_rebuild"),
+    ("core/split_state.py", "leaf_shard_dim"),
+    ("core/split_state.py", "gather_leaf"),
+    ("core/split_state.py", "scatter_leaf"),
+    ("core/split_state.py", "reshard_state"),
+    ("sharding/rules.py", "zero1_pick_dim"),
+    ("comm/transport/harness.py", "WorldContext"),
+    ("comm/transport/harness.py", "WorldResult"),
+    ("comm/transport/harness.py", "row_width"),
+    ("comm/transport/harness.py", "WorldError"),
+    ("comm/transport/harness.py", "restore_agent_from_blob"),
+    ("comm/transport/harness.py", "_run_inproc"),
+    ("comm/transport/harness.py", "_socket_child"),
+    ("comm/transport/harness.py", "SupervisedRun"),
+    ("comm/transport/harness.py", "_image_restorable"),
+    ("comm/transport/harness.py", "run_world_supervised"),
 )
 
 

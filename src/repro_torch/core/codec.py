@@ -34,14 +34,18 @@ to the hand-written Hopper kernel (`repro_torch.kernels.*.ops`, which
 launches or raises), a CPU tensor to that kernel's plain PyTorch
 version, and host bytes or numpy arrays to the numpy twins.  The
 `CheckpointManager` codecs take tensors and return payloads as flat
-uint8 tensors on the tensor's device; the wire-image codecs below work
-on host bytes.  On-disk and wire formats are the reference's, byte for
-byte.  The reference's `use_pallas=` switch has no counterpart: the
-device decides.
+uint8 tensors on the tensor's device.  The wire-image codec
+(`SnapshotCodec`, `IncrementalSnapshotter`) takes tensors too: it XORs
+and quantizes on the tensor's device and moves only the finished bytes
+to the host, once, for the byte shuffle, deflate and digest; its decode
+returns numpy arrays, or tensors on `device=` with deltas applied and
+int8 cells dequantized there.  On-disk and wire formats are the
+reference's, byte for byte.  The reference's `use_pallas=` switch has no
+counterpart: the device decides.
 
-Port of `repro.core.codec`: everything but the dispatch functions and
-the three `CheckpointManager` codecs' tensor handling is the
-reference's code.
+Port of `repro.core.codec`: everything but the dispatch functions, the
+three `CheckpointManager` codecs' tensor handling and the tensor paths
+of the wire-image codec is the reference's code.
 """
 from __future__ import annotations
 
@@ -110,6 +114,103 @@ def torch_dtype(name: str):
     if not isinstance(dt, torch.dtype):
         raise CheckpointError(f"dtype {name!r} has no torch counterpart")
     return dt
+
+
+def _torch_device(device):
+    """`device` as a `torch.device` with its index (a bare "cuda" is
+    the current card), so it compares equal to a tensor's device."""
+    import torch
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _host_u8(t) -> np.ndarray:
+    """A tensor's bytes on the host as a flat uint8 array: one
+    device-to-host copy for a CUDA tensor, a view for a CPU tensor."""
+    from repro_torch.kernels import as_bytes
+    return as_bytes(t.contiguous()).cpu().numpy()
+
+
+def _capture(v):
+    """A private copy of one array at the cut: a tensor is cloned on its
+    own device (no host copy), anything else is copied on the host."""
+    if _is_tensor(v):
+        import torch
+        return torch.clone(v.detach(), memory_format=torch.contiguous_format)
+    return np.ascontiguousarray(v).copy()
+
+
+def _ready_event(arrays: Dict):
+    """An event recorded on the current stream after the captures of
+    CUDA tensors in `arrays` (None when there are none): the encode may
+    run on another thread, and so on another current stream."""
+    dev = next((v.device for v in arrays.values()
+                if _is_tensor(v) and v.device.type == "cuda"), None)
+    if dev is None:
+        return None
+    import torch
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return dev, ev
+
+
+def _upload(raw, device):
+    """Inflated cell bytes (bytes, or the uint8 array the unshuffle
+    returns) -> a flat uint8 tensor on `device`, in one copy."""
+    import torch
+    u8 = raw if isinstance(raw, np.ndarray) else np.frombuffer(raw, np.uint8)
+    if not u8.flags.writeable:
+        u8 = u8.copy()
+    return torch.from_numpy(u8).to(device)
+
+
+def _dequantize_dispatch(q, scales, pad: int, shape, dtype):
+    """int8 blocks back to values: tensors -> `dequantize` (kernel on
+    CUDA, plain on CPU), host arrays -> `dequantize_np`."""
+    if _is_tensor(q):
+        from repro_torch.kernels.quantize.ops import dequantize
+        return dequantize(q, scales, pad, shape, dtype)
+    return quant_ref.dequantize_np(q, scales, pad, shape, dtype)
+
+
+def _apply_dispatch(prev, delta, shape, dtype):
+    """base ^ delta viewed as `dtype` of `shape`: tensors -> `xor_bytes`
+    (kernel on CUDA, plain on CPU), host arrays -> `apply_np`."""
+    if _is_tensor(prev):
+        return _delta_dispatch(prev, delta).view(dtype).reshape(shape)
+    return apply_np(prev, delta, shape, dtype)
+
+
+def _place(x):
+    """Where a cell value lives: a tensor's device, None for the host."""
+    return x.device if _is_tensor(x) else None
+
+
+def _host_bytes(x):
+    """A cell value's bytes on the host: one device-to-host copy of a
+    tensor (`_host_u8`), `tobytes` of an array."""
+    return _host_u8(x) if _is_tensor(x) else np.asarray(x).tobytes()
+
+
+def _cell_dtype(name: str, device):
+    """A manifest dtype name as numpy's dtype (host decode) or torch's
+    (`device` decode)."""
+    return np.dtype(name) if device is None else torch_dtype(name)
+
+
+def _as_cell(raw, dtype, shape, what: str, device):
+    """Inflated cell bytes as a `dtype` array of `shape`: a host array
+    (`_as_array`), or with `device` a tensor there, uploaded once."""
+    if device is None:
+        return _as_array(raw, dtype, shape, what)
+    try:
+        return _upload(raw, device).view(dtype).reshape(shape)
+    except RuntimeError as e:
+        raise ImageIntegrityError(
+            f"{what}: payload does not fit shape {shape} "
+            f"dtype {dtype}: {e}") from e
 
 
 # ---------------------------------------------------------------------------
@@ -497,7 +598,9 @@ class SnapshotCodec:
     compressed+digested stream.
 
     A delta blob encodes each array as an XOR against the base snapshot
-    (numpy XOR on the host bytes) — unchanged regions are zero
+    on the array's own device (the XOR kernel for a CUDA tensor, its
+    plain version for a CPU tensor, `delta_np` for a host array) —
+    unchanged regions are zero
     runs, so small-change steps produce small images.  Every cell runs
     through the byte-shuffle filter, then deflate at `compress_level`.
     Arrays absent from the base (or with changed shape/dtype) degrade
@@ -536,30 +639,42 @@ class SnapshotCodec:
         return comp, {"n": len(raw), "zn": len(comp), "filter": filt,
                       "digest": shard_digest(comp)}
 
-    def _encode_cell(self, name: str, arr: np.ndarray,
-                     base: Optional[Dict[str, np.ndarray]],
+    def _encode_cell(self, name: str, arr, base: Optional[Dict],
                      streams: List[bytes]) -> Dict:
-        arr = np.ascontiguousarray(arr)
+        """One array's cell.  A tensor stays on its device: XOR and int8
+        run there (the kernels for a CUDA tensor), and only the finished
+        bytes cross to the host, once, for the shuffle, deflate and
+        digest — the cell is byte for byte the one a host array of the
+        same values gives."""
+        if _is_tensor(arr):
+            # 0-d -> (1,), as `np.ascontiguousarray` does for an array
+            arr = arr.detach().contiguous().reshape(arr.shape or (1,))
+            itemsize = arr.element_size()
+        else:
+            arr = np.ascontiguousarray(arr)
+            itemsize = arr.dtype.itemsize
         cell: Dict[str, Any] = {"shape": list(arr.shape),
-                                "dtype": str(arr.dtype)}
+                                "dtype": dtype_name(arr)}
         if name in self.quantize_keys:
             q, s, pad = _quantize_dispatch(arr)
-            zq, mq = self._pack(q.tobytes())           # int8: no shuffle
-            zs, ms = self._pack(s.tobytes(), 4)        # f32 scales
+            zq, mq = self._pack(_host_bytes(q))        # int8: no shuffle
+            zs, ms = self._pack(_host_bytes(s), 4)     # f32 scales
             cell.update(encoding="int8_block", pad=pad,
                         payload=mq, scales=ms)
             streams += [zq, zs]
             return cell
         prev = None if base is None else base.get(name)
-        if (prev is not None and prev.shape == arr.shape
-                and prev.dtype == arr.dtype):
+        # a base elsewhere (host vs card, another card) gives a full cell
+        if (prev is not None and _place(prev) == _place(arr)
+                and tuple(prev.shape) == tuple(arr.shape)
+                and dtype_name(prev) == dtype_name(arr)):
             d = _delta_dispatch(arr, prev)
             # shuffle the XOR bytes by the SOURCE itemsize: zeroed
             # high-byte planes of barely-changed values become runs
-            z, m = self._pack(np.asarray(d).tobytes(), arr.dtype.itemsize)
+            z, m = self._pack(_host_bytes(d), itemsize)
             cell.update(encoding="xor_delta", payload=m)
         else:
-            z, m = self._pack(arr.tobytes(), arr.dtype.itemsize)
+            z, m = self._pack(_host_bytes(arr), itemsize)
             cell.update(encoding="raw", payload=m)
         streams.append(z)
         return cell
@@ -569,8 +684,7 @@ class SnapshotCodec:
                extra: Optional[Dict] = None) -> bytes:
         base_epoch, base_arrays = base if base is not None else (None, None)
         streams: List[bytes] = []
-        cells = {name: self._encode_cell(name, np.asarray(arr), base_arrays,
-                                         streams)
+        cells = {name: self._encode_cell(name, arr, base_arrays, streams)
                  for name, arr in sorted(arrays.items())}
         meta: Dict[str, Any] = {
             "ckpt_format": SNAP_FORMAT,
@@ -651,7 +765,12 @@ class SnapshotCodec:
 
     def decode(self, blob: Blob, *,
                base_arrays: Optional[Dict[str, np.ndarray]] = None,
-               ) -> Dict[str, np.ndarray]:
+               device=None) -> Dict[str, np.ndarray]:
+        """The arrays of one blob: numpy arrays, as the reference
+        returns them, or with `device` tensors on that device (a delta
+        blob's `base_arrays` then being tensors there too)."""
+        if device is not None:
+            device = _torch_device(device)
         if isinstance(blob, dict):
             if blob.get("ckpt_format") == 1:
                 blob = migrate_blob(blob)  # legacy JSON image, one shot
@@ -671,39 +790,51 @@ class SnapshotCodec:
             what = f"epoch {epoch} array {name!r}"
             try:
                 shape = tuple(cell["shape"])
-                dtype = np.dtype(cell["dtype"])
-            except (KeyError, TypeError) as e:
+                dtype = _cell_dtype(cell["dtype"], device)
+            except (KeyError, TypeError, CheckpointError) as e:
                 raise ImageIntegrityError(
                     f"{what}: corrupt cell header") from e
             raw = _inflate(streams[name][0], cell["payload"], what)
-            if cell.get("encoding") == "raw":
-                out[name] = _as_array(raw, dtype, shape, what)
-            elif cell.get("encoding") == "int8_block":
-                scales = _inflate(streams[name][1], cell["scales"], what)
-                q = _as_array(raw, np.int8, (-1, quant_ref.QBLOCK), what)
-                s = _as_array(scales, np.float32, (-1, 1), what)
-                out[name] = quant_ref.dequantize_np(q, s, cell["pad"],
-                                                    shape, dtype)
-            elif cell.get("encoding") == "xor_delta":
-                prev = (base_arrays or {}).get(name)
-                if prev is None or prev.shape != shape or prev.dtype != dtype:
-                    raise DeltaChainError(
-                        f"{what}: delta cell without a matching base array")
-                out[name] = apply_np(prev, _as_array(raw, np.uint8, (-1,),
-                                                     what),
-                                     shape, dtype)
-            else:
-                raise ImageError(f"{what}: unknown encoding "
-                                 f"{cell['encoding']!r}")
+            enc = cell.get("encoding")
+            try:
+                if enc == "raw":
+                    out[name] = _as_cell(raw, dtype, shape, what, device)
+                elif enc == "int8_block":
+                    scales = _inflate(streams[name][1], cell["scales"],
+                                      what)
+                    q = _as_cell(raw, _cell_dtype("int8", device),
+                                 (-1, quant_ref.QBLOCK), what, device)
+                    s = _as_cell(scales, _cell_dtype("float32", device),
+                                 (-1, 1), what, device)
+                    out[name] = _dequantize_dispatch(q, s, cell["pad"],
+                                                     shape, dtype)
+                elif enc == "xor_delta":
+                    prev = (base_arrays or {}).get(name)
+                    if (prev is None or _place(prev) != device
+                            or tuple(prev.shape) != shape
+                            or prev.dtype != dtype):
+                        raise DeltaChainError(f"{what}: delta cell without "
+                                              f"a matching base array")
+                    d = _as_cell(raw, _cell_dtype("uint8", device), (-1,),
+                                 what, device)
+                    out[name] = _apply_dispatch(prev, d, shape, dtype)
+                else:
+                    raise ImageError(f"{what}: unknown encoding {enc!r}")
+            except ValueError as e:
+                raise ImageIntegrityError(
+                    f"{what}: payload does not fit shape {shape} "
+                    f"dtype {dtype}: {e}") from e
         return out
 
     def decode_chain(self, blobs_by_epoch: Dict[int, Blob], epoch: int, *,
                      max_chain: int = ChainPolicy.max_chain,
-                     ) -> Dict[str, np.ndarray]:
+                     device=None) -> Dict[str, np.ndarray]:
         """Reconstruct the arrays of `epoch` by walking its base chain
         (base-first application of XOR deltas).  `blobs_by_epoch` may
         key epochs as ints or strings, and may mix binary containers
-        with legacy format-1 dicts (a migrated run's history)."""
+        with legacy format-1 dicts (a migrated run's history).  With
+        `device`, every link is uploaded once and the deltas are
+        applied there (the XOR kernel on CUDA)."""
         index = {int(e): b for e, b in blobs_by_epoch.items()}
         chain: List[Blob] = []
         e: Optional[int] = epoch
@@ -721,7 +852,7 @@ class SnapshotCodec:
             e = blob_base_epoch(blob)
         arrays: Optional[Dict[str, np.ndarray]] = None
         for blob in reversed(chain):
-            arrays = self.decode(blob, base_arrays=arrays)
+            arrays = self.decode(blob, base_arrays=arrays, device=device)
         assert arrays is not None
         return arrays
 
@@ -753,9 +884,13 @@ class IncrementalSnapshotter:
         safe to run on a background thread OR in a forked writer child
         (where parent-side mutations would be lost to copy-on-write) —
         hand it straight to `RankAgent.safe_point`'s async contract.
+        A tensor is captured by one clone on its own device and encoded
+        there (the closure then belongs on a thread writer: a forked
+        child cannot use CUDA); the encode waits on an event recorded
+        after the clones, so it may run on another stream.
         """
-        arrays = {k: np.ascontiguousarray(v).copy()
-                  for k, v in arrays.items()}
+        arrays = {k: _capture(v) for k, v in arrays.items()}
+        ready = _ready_event(arrays)
         delta_ok = (self._base is not None
                     and self._since_full < self.policy.full_every - 1)
         base = self._base if delta_ok else None
@@ -765,7 +900,16 @@ class IncrementalSnapshotter:
         # mutating its own arrays immediately
         self._base = (epoch, arrays)
         codec = self.codec
-        return lambda: codec.encode(epoch, arrays, base=base, extra=extra)
+        if ready is None:
+            return lambda: codec.encode(epoch, arrays, base=base,
+                                        extra=extra)
+
+        def produce():
+            import torch
+            dev, ev = ready
+            ev.wait(torch.cuda.current_stream(dev))
+            return codec.encode(epoch, arrays, base=base, extra=extra)
+        return produce
 
     def snapshot(self, epoch: int, arrays: Dict[str, np.ndarray],
                  extra: Optional[Dict] = None) -> bytes:
@@ -776,7 +920,7 @@ class IncrementalSnapshotter:
 def restore_rank_arrays(image: Dict, rank: int,
                         codec: Optional[SnapshotCodec] = None, *,
                         max_chain: int = ChainPolicy.max_chain,
-                        ) -> Tuple[Dict[str, np.ndarray], Dict]:
+                        device=None) -> Tuple[Dict[str, np.ndarray], Dict]:
     """Reconstruct one rank's arrays from a committed checkpoint image.
 
     `image` is the collector's committed image ({"epoch", "ranks",
@@ -785,7 +929,8 @@ def restore_rank_arrays(image: Dict, rank: int,
     legacy JSON round trip (format-1 dict blobs — migrated on the fly).
     Returns (arrays, extra) where `extra` is the app dict the rank
     attached at encode time.  Raises `ImageIntegrityError` /
-    `DeltaChainError` on corruption or broken chains.
+    `DeltaChainError` on corruption or broken chains.  The arrays are
+    numpy arrays, or with `device` tensors there (`decode_chain`).
     """
     codec = codec or SnapshotCodec()
     ranks = image["ranks"]
@@ -795,7 +940,8 @@ def restore_rank_arrays(image: Dict, rank: int,
     epoch = int(snap_meta(blob)["epoch"])
     blobs = {int(e): b for e, b in chain.items()}
     blobs[epoch] = blob
-    arrays = codec.decode_chain(blobs, epoch, max_chain=max_chain)
+    arrays = codec.decode_chain(blobs, epoch, max_chain=max_chain,
+                                device=device)
     return arrays, codec.decode_extra(blob)
 
 

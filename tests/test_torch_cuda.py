@@ -3,8 +3,11 @@ kernel bit for bit against its plain PyTorch version, launch counting,
 a bit-identical resume through MANARuntime, and serving with live
 decode-state images (bit-identical continuation after a delta-chain
 restore, the SWA ring wrap, MoE capacity drops, the checksum and XOR
-launches of a decode-state image).  Marked `cuda`; without a card every
-test skips.  Run on the card with
+launches of a decode-state image), and the wire codec and worlds with
+rank state on the card (`SnapshotCodec` blobs from CUDA tensors equal
+those from CPU tensors, `decode_chain(device="cuda")` equals the host
+decode, a 2-rank socket world of card shards commits and restores).
+Marked `cuda`; without a card every test skips.  Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -254,3 +257,71 @@ def test_decode_state_image_launches_kernels(dev, tmp_path):
     for key in ("k", "v"):
         assert torch.equal(got["decode"]["layers"][key], st2["layers"][key])
     assert int(got["decode"]["pos"]) == 65
+
+
+# ---------------------------------------------------------------------------
+# wire codec and worlds with rank state on the card
+# ---------------------------------------------------------------------------
+
+def _wire_arrays(seed):
+    rng = np.random.RandomState(seed)
+    return {"w": rng.randn(3, 5000).astype(np.float32),
+            "i": np.arange(4099, dtype=np.int64),
+            "q": rng.randn(70000).astype(np.float32)}
+
+
+@pytest.mark.parametrize("quantize", [(), ("q",)])
+def test_snapshot_codec_cuda_blobs_equal_cpu(dev, quantize):
+    from repro_torch.core.codec import SnapshotCodec
+    a = _wire_arrays(0)
+    b = {k: v.copy() for k, v in a.items()}
+    b["w"][1, 10:300] += 1.0
+    b["q"][:5000] *= 2.0
+    codec = SnapshotCodec(quantize_keys=quantize)
+    cpu = [{k: torch.from_numpy(v) for k, v in d.items()} for d in (a, b)]
+    card = [{k: v.to(dev) for k, v in d.items()} for d in cpu]
+    n_xor = 3 - len(quantize)      # every delta cell but the int8 one
+    x0, q0 = dops.launches, qops.launches
+    full = codec.encode(1, card[0], extra={"e": 1})
+    delta = codec.encode(2, card[1], base=(1, card[0]))
+    assert dops.launches - x0 == n_xor
+    assert qops.launches - q0 == 2 * len(quantize)
+    assert full == codec.encode(1, cpu[0], extra={"e": 1})
+    assert delta == codec.encode(2, cpu[1], base=(1, cpu[0]))
+    host = codec.decode_chain({1: full, 2: delta}, 2)
+    x0, d0 = dops.launches, qops.dequantize_launches
+    got = codec.decode_chain({1: full, 2: delta}, 2, device="cuda")
+    assert dops.launches - x0 == n_xor
+    assert qops.dequantize_launches - d0 == 2 * len(quantize)
+    for k, v in host.items():
+        assert got[k].device.type == "cuda"
+        np.testing.assert_array_equal(got[k].cpu().numpy(), v)
+
+
+def test_incremental_stage_on_card_is_a_private_copy(dev):
+    from repro_torch.core.codec import (ChainPolicy, IncrementalSnapshotter,
+                                        restore_rank_arrays)
+    snap = IncrementalSnapshotter(ChainPolicy(full_every=4))
+    x = torch.randn(1 << 20, device=dev)
+    p1 = snap.stage(1, {"x": x})
+    x[:1000] += 1.0
+    cut = x.clone()
+    p2 = snap.stage(2, {"x": x})
+    x += 5.0          # the live array moves on before the encode runs
+    image = {"epoch": 2, "n_ranks": 1, "ranks": {0: p2()},
+             "chains": {0: {1: p1()}}}
+    arrays, _ = restore_rank_arrays(image, 0, device="cuda")
+    assert torch.equal(arrays["x"], cut)
+
+
+def test_socket_world_of_card_shards_commits_and_restores(dev, tmp_path):
+    from repro_torch.core.codec import image_to_bytes
+    from repro_torch.examples import multirank_simulation as twin
+    image, m = twin.run_pipeline(2, "socket", 1 << 20, dev, seed=3,
+                                 tmpdir=str(tmp_path))
+    assert m["delta_epochs"] and m["rank_process"]["xor_delta"] > 0
+    _, m2 = twin.run_pipeline(2, "socket", 1 << 20, dev, seed=3,
+                              image=image_to_bytes(image),
+                              steps=twin.PIPE_EVERY + 1,
+                              tmpdir=str(tmp_path))
+    assert m2["rank_process"]["xor_delta"] > 0   # chain applied on the card

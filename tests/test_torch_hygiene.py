@@ -18,10 +18,11 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 def _swap(text: str) -> str:
     """The copy rule: the import prefix swapped, and the reference's
-    upper-case history tags with a number, "(TAG 6)" or "(TAG 3; ...",
-    dropped from comments and docstrings."""
+    upper-case history tags with a number, "(TAG 6)", "(TAG 3; ..." or
+    "(..., TAG 10)", dropped from comments and docstrings."""
     text = re.sub(r"[A-Z]+ \d+; ", "", text)
     text = re.sub(r" ?\([A-Z]+ \d+\)", "", text)
+    text = re.sub(r", [A-Z]+ \d+\)", ")", text)
     return re.sub(r"\brepro\.", "repro_torch.", text)
 
 
@@ -42,10 +43,26 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert len(names) > 40, names\n"
         "for m in ('repro_torch.models.moe', 'repro_torch.models.attention',\n"
-        "          'repro_torch.examples.serve_with_snapshot'):\n"
+        "          'repro_torch.examples.serve_with_snapshot',\n"
+        "          'repro_torch.comm.transport.harness',\n"
+        "          'repro_torch.core.restore', 'repro_torch.core.image_store',\n"
+        "          'repro_torch.examples.multirank_simulation'):\n"
         "    assert m in names, m\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_package_import_stays_light():
+    """Socket rank processes import the package: it must not pull in
+    torch (nor JAX) before a rank asks for a tensor."""
+    code = ("import sys, repro_torch, repro_torch.comm.transport.harness\n"
+            "repro_torch.restore_world, repro_torch.open_store\n"
+            "assert 'torch' not in sys.modules\n"
+            "assert 'jax' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
