@@ -15,7 +15,10 @@ fatal on failure:
      plain version and, where one PyTorch call computes the same
      function (`torch.bitwise_xor`, `torch.mul`), that call, beside the
      bound bytes / 3.35 TB/s; XOR and `torch.bitwise_xor` also timed
-     call by call in turns (120 each: median, quartiles, range);
+     call by call in turns (120 each: median, quartiles, range, and a
+     verdict) at (a) the (151936, 896) f32 embedding pair, (b) the world
+     shards, distinct ones in rotation as the world phases XOR them, and
+     (c) a pass over all 14 parameter leaves of qwen2-0.5b;
   2. main path: full-width qwen2-0.5b through `MANARuntime` on cuda,
      6 steps with an image every 2 (XOR-delta params), then a fresh
      runtime restores step 4 (chain 4 -> 2) and its 2 steps must repeat
@@ -65,6 +68,7 @@ The last line of standard output is
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import shutil
@@ -117,7 +121,10 @@ def bound_ms(nbytes: float) -> float:
 def interleaved_ms(fns, reps: int = 120, warmup: int = 5):
     """Device times of single calls, the functions taking turns call by
     call (A, B, A, B, ...) so that both see the same clocks and card
-    state: per function, the sorted list of `reps` times in ms."""
+    state: per function, the sorted list of `reps` times in ms.  Every
+    20 turns start behind a kernel that spins on the card for about 10
+    ms while the host queues them, so that the calls run back to back
+    and no gap of the host's launching falls between a call's events."""
     import torch
 
     for _ in range(warmup):
@@ -128,6 +135,8 @@ def interleaved_ms(fns, reps: int = 120, warmup: int = 5):
           for _ in fns]
     torch.cuda.synchronize()
     for i in range(reps):
+        if i % 20 == 0:
+            torch.cuda._sleep(20_000_000)   # cycles: ~10 ms at 1.98 GHz
         for fn, pairs in zip(fns, ev):
             pairs[i][0].record()
             fn()
@@ -141,6 +150,132 @@ def spread(times) -> str:
     q = lambda f: times[min(len(times) - 1, int(f * len(times)))]
     return (f"median {q(0.5):.4f} ms (quartiles {q(0.25):.4f}-{q(0.75):.4f}, "
             f"range {times[0]:.4f}-{times[-1]:.4f}, n={len(times)})")
+
+
+def verdict(k_t, l_t) -> str:
+    """Kernel against library call from two sorted lists of times: a
+    difference of medians counts only beyond the larger quartile spread."""
+    q = lambda t, f: t[min(len(t) - 1, int(f * len(t)))]
+    iqr = max(q(k_t, 0.75) - q(k_t, 0.25), q(l_t, 0.75) - q(l_t, 0.25))
+    d = q(k_t, 0.5) - q(l_t, 0.5)
+    if d > iqr:
+        return "kernel slower by more than the spread"
+    if -d > iqr:
+        return "kernel faster by more than the spread"
+    return "level within the spread"
+
+
+def xor_leaf_pairs(gen, dev):
+    """Every parameter leaf of full-width qwen2-0.5b (14 f32 leaves, about
+    2.0 GB) on the card, each with a copy that differs in every 7th
+    value: one delta image's worth of XOR work."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import tree_leaves
+
+    shapes, _ = init_params(ARCHS["qwen2-0.5b"], None, "meta")
+    pairs = []
+    for leaf in tree_leaves(shapes):
+        x = torch.randn(leaf.shape, generator=gen, device=dev)
+        y = x.clone()
+        y.view(-1)[::7] += 1.0
+        pairs.append((x, y))
+    return pairs
+
+
+def xor_edge_cases(buf, tile: int):
+    """(a, b, out) byte views cut from the bytes of a tensor of 32 MiB or
+    more at the XOR kernel's edges (`tile`: the bytes of each input one
+    CTA takes): one tile, a tile + 16 and + 1 bytes, many waves of CTAs,
+    the longest tail, three views sharing a 3-byte misalignment (the
+    peeled head), and views misaligned by 1 and 2 bytes (the byte loop).
+    `out` is None where `xor_bytes` allocates it; the shared
+    misalignment needs an output view of its own."""
+    import torch
+
+    from repro_torch.kernels import as_bytes
+
+    r = as_bytes(buf)
+    n = r.numel() // 2
+
+    def cut(off_a, off_b, m, off_out=None):
+        out = None
+        if off_out is not None:
+            out = torch.empty(m + 16, dtype=torch.uint8, device=r.device)
+            out = out[off_out:off_out + m]
+        return r[off_a:off_a + m], r[n + off_b:n + off_b + m], out
+
+    return [cut(0, 0, tile), cut(0, 0, tile + 16), cut(0, 0, tile + 1),
+            cut(0, 0, n - 64), cut(0, 0, 3 * tile + 16 * 5 + 15),
+            cut(3, 3, 5 * tile + 7, off_out=3), cut(1, 2, 2 * tile + 5)]
+
+
+def xor_sizes(gen, dev, a, b):
+    """The main path's sizes at which XOR is timed, each a list of groups
+    of (x, y) pairs; one call XORs one group, and calls rotate through
+    the groups.  (a) the embedding pair (a, b); (b) the world shards as
+    the world phases XOR them, distinct ranks' shards: 8 of 16 MiB and 4
+    of 64 MiB of f32 (384 and 768 MiB of inputs and outputs a rotation,
+    far beyond the 50 MB L2, so no call finds its bytes there), cut from
+    1 GiB and a copy that differs in every 97th value; (c) one pass over
+    every parameter leaf of qwen2-0.5b.  Returns the sizes and the 1 GiB
+    shard buffer."""
+    import torch
+
+    w = torch.randn((4 * CROSS_NUMEL,), generator=gen, device=dev)
+    w2 = w.clone()
+    w2[::97] += 1.0
+    cut = lambda n, k: [[(w[i * n:(i + 1) * n], w2[i * n:(i + 1) * n])]
+                        for i in range(k)]
+    leaves = xor_leaf_pairs(gen, dev)
+    return {"(a) (151936, 896) f32 pair": [[(a, b)]],
+            f"(b) world shard ({WORLD_NUMEL},) f32, 8 in rotation":
+                cut(WORLD_NUMEL, 8),
+            f"(b) cross shard ({CROSS_NUMEL},) f32, 4 in rotation":
+                cut(CROSS_NUMEL, 4),
+            f"(c) qwen2-0.5b params, {len(leaves)} leaves": [leaves]}, w
+
+
+def xor_triples(pairs):
+    """(a, b, out) flat byte views for `xor_pass`."""
+    import torch
+
+    from repro_torch.kernels import as_bytes
+
+    return [(as_bytes(x), as_bytes(y), torch.empty_like(as_bytes(x)))
+            for x, y in pairs]
+
+
+def xor_pass(launch, triples):
+    """One pass over (a, b, out) byte triples: `launch` is a C entry
+    point with `xor_launch`'s signature, None takes `torch.bitwise_xor`."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    if launch is None:
+        def run():
+            for x, y, o in triples:
+                torch.bitwise_xor(x, y, out=o)
+        return run
+
+    def run():
+        s = torch.cuda.current_stream().cuda_stream
+        for x, y, o in triples:
+            _build.check(launch(x.data_ptr(), y.data_ptr(), o.data_ptr(),
+                                x.numel(), s), "xor")
+    return run
+
+
+def xor_turns(launches, groups):
+    """For each of `launches` (as in `xor_pass`), a callable that XORs the
+    next group of (a, b, out) triples of a rotation that all of them
+    share, so that calls taking turns never repeat a group back to back."""
+    passes = [[xor_pass(launch, g) for g in groups] for launch in launches]
+    turn = itertools.count()
+    return [lambda p=p: p[next(turn) % len(p)]() for p in passes]
 
 
 # ---------------------------------------------------------------------------
@@ -203,49 +338,54 @@ def phase_kernels(card: str):
     a = torch.randn((151936, 896), generator=gen, device=dev)
     b = a.clone()
     b.view(-1)[::7] += 1.0
+    sizes, w = xor_sizes(gen, dev, a, b)
     err = 0
-    pairs = [(a, b)]
+    pairs = [p for groups in sizes.values() for g in groups for p in g]
     ragged = torch.randint(0, 256, (2 * 1_000_003 + 1,), dtype=torch.uint8,
                            device=dev, generator=gen)
     pairs.append((ragged[:1_000_003], ragged[1_000_003:2_000_006]))
     pairs.append((ragged[1:1_000_004], ragged[1_000_004:]))   # unaligned
-    # the world phases' shards: 16 MiB and 64 MiB of f32 a rank
-    w = torch.randn((CROSS_NUMEL,), generator=gen, device=dev)
-    w2 = w.clone()
-    w2[::97] += 1.0
-    pairs += [(w[:WORLD_NUMEL], w2[:WORLD_NUMEL]), (w, w2)]
     for x, y in pairs:
         k = dops.xor_bytes(x, y)
         p = dref.xor_torch(as_bytes(x), as_bytes(y))
         if not torch.equal(k, p):
-            raise AssertionError(f"xor kernel != plain at {x.numel()} elems")
+            raise AssertionError(f"xor kernel != plain at {x.numel()} elems "
+                                 f"of {x.dtype}")
         err = max(err, int((k.int() - p.int()).abs().max()))
+    lib = _build.library("delta")
+    edges = xor_edge_cases(w[:CROSS_NUMEL], dops.tile())
+    for x, y, o in edges:
+        if o is None:
+            o = dops.xor_bytes(x, y)
+        else:
+            _build.check(lib.xor_launch(x.data_ptr(), y.data_ptr(),
+                                        o.data_ptr(), x.numel(), stream()),
+                         "xor")
+        if not torch.equal(o, dref.xor_torch(x, y)):
+            raise AssertionError(f"xor kernel != plain at the edge of "
+                                 f"{x.numel()} bytes")
     hx, hy = a[:3].cpu().numpy(), b[:3].cpu().numpy()
     if not np.array_equal(dops.xor_bytes(a[:3], b[:3]).cpu().numpy(),
                           dref.delta_np(hx, hy)):
         raise AssertionError("xor kernel != numpy twin")
     ra, rb = as_bytes(a), as_bytes(b)
     o = torch.empty_like(ra)
-    lib = _build.library("delta")
     k_ms = device_ms(lambda: _build.check(lib.xor_launch(
         ra.data_ptr(), rb.data_ptr(), o.data_ptr(), ra.numel(), stream()),
         "xor"))
     p_ms = device_ms(lambda: dref.xor_torch(ra, rb))
     l_ms = device_ms(lambda: torch.bitwise_xor(ra, rb, out=o))
     nb = 3 * ra.numel()
-    # kernel and library call taking turns, call by call
-    k_t, l_t = interleaved_ms([
-        lambda: _build.check(lib.xor_launch(
-            ra.data_ptr(), rb.data_ptr(), o.data_ptr(), ra.numel(),
-            stream()), "xor"),
-        lambda: torch.bitwise_xor(ra, rb, out=o)])
-    med = lambda t: t[len(t) // 2]
-    iqr = max(k_t[3 * len(k_t) // 4] - k_t[len(k_t) // 4],
-              l_t[3 * len(l_t) // 4] - l_t[len(l_t) // 4])
-    verdict = ("kernel slower by more than the spread"
-               if med(k_t) - med(l_t) > iqr else "level within the spread")
-    log(f"xor interleaved with torch.bitwise_xor: kernel {spread(k_t)}; "
-        f"library {spread(l_t)}; {verdict} [{card}]")
+    # kernel and library call taking turns, call by call, at the three
+    # sizes of the main path (`xor_sizes`)
+    for what, groups in sizes.items():
+        groups = [xor_triples(g) for g in groups]
+        k_t, l_t = interleaved_ms(xor_turns([lib.xor_launch, None], groups))
+        log(f"xor interleaved with torch.bitwise_xor at {what}: kernel "
+            f"{spread(k_t)}; library {spread(l_t)}; bound "
+            f"{bound_ms(sum(3 * t[0].numel() for t in groups[0])):.4f} ms; "
+            f"{verdict(k_t, l_t)} [{card}]")
+        del groups
     rows.append(dict(
         name="xor_delta", route="cuda",
         source="src/repro_torch/kernels/delta/csrc/delta.cu",
@@ -253,12 +393,14 @@ def phase_kernels(card: str):
         max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms(nb),
         bound_by="bytes", library_ms=l_ms,
         shape="(151936, 896) f32 pair (embedding leaf)"))
-    log(f"kernel xor_delta: bit-exact on (151936, 896) f32, the world "
-        f"shards ({WORLD_NUMEL},) and ({CROSS_NUMEL},) f32, ragged and "
-        f"unaligned bytes + numpy twin; kernel_ms={k_ms:.4f} "
+    log(f"kernel xor_delta: bit-exact on (151936, 896) f32, 8 world "
+        f"shards ({WORLD_NUMEL},) and 4 ({CROSS_NUMEL},) f32, the "
+        f"{len(list(sizes.values())[-1][0])} leaves of qwen2-0.5b, ragged, "
+        f"unaligned and "
+        f"{len(edges)} edge cases + numpy twin; kernel_ms={k_ms:.4f} "
         f"plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
         f"bound_ms={bound_ms(nb):.4f} [{card}]")
-    del a, b, ra, rb, o, ragged, pairs, w, w2
+    del a, b, ra, rb, o, ragged, pairs, sizes, w, edges
 
     # -- int8 quantize ----------------------------------------------------
     x = torch.randn((24, 896, 4864), generator=gen, device=dev) * 1e-3

@@ -33,11 +33,12 @@ BUILD_DIR = os.path.normpath(os.path.join(_PKG, "..", "..", "..", "build",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# C signatures: name -> (argtypes); every entry returns int (cudaError_t)
+# C signatures: name -> (argtypes); every entry returns int: the launches
+# a cudaError_t, `xor_tile` the bytes of each input one CTA takes
 _P, _I64 = ctypes.c_void_p, ctypes.c_longlong
 SIGNATURES = {
     "checksum": {"checksum_launch": [_P, _I64, _P, _P, _P]},
-    "delta": {"xor_launch": [_P, _P, _P, _I64, _P]},
+    "delta": {"xor_launch": [_P, _P, _P, _I64, _P], "xor_tile": []},
     "quantize": {"quantize_launch": [_P, _I64, _P, _P, _P],
                  "dequantize_launch": [_P, _P, _I64, _P, _P]},
 }

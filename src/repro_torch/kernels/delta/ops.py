@@ -10,6 +10,11 @@ from repro_torch.kernels.delta import ref
 launches = 0  # kernel launches (the plain version does not count)
 
 
+def tile() -> int:
+    """Bytes of each input one CTA of the kernel takes (builds it)."""
+    return _build.library("delta").xor_tile()
+
+
 def xor_bytes(a, b):
     """Byte-wise a ^ b of two tensors with the same byte length (any
     dtypes) -> a new flat uint8 tensor.  Encodes a delta (cur ^ base)

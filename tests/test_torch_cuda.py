@@ -52,16 +52,52 @@ def test_checksum_kernel(dev, offset, nbytes):
     assert got == cref.checksum_np(raw.astype(np.uint8)[offset:])
 
 
-@pytest.mark.parametrize("n", [1, 16, 17, 4099, 1 << 20])
-def test_xor_kernel(dev, n):
+@pytest.mark.parametrize("tiles,extra,offsets", [
+    (0, 1, None), (0, 16, None), (0, 17, None), (0, 4099, None),
+    (0, 1 << 20, None),
+    (1, 0, (0, 0, None)),                   # exactly one CTA's tile
+    (1, 16, (0, 0, None)),                  # one tile + 16 bytes
+    (1, 1, (0, 0, None)),                   # one tile + 1 byte
+    (0, (1 << 26) + 48, (0, 0, None)),      # many waves of CTAs
+    (3, 16 * 5 + 15, (0, 0, None)),         # the longest tail
+    (5, 7, (3, 3, 3)),                      # shared misalignment: the peel
+    (2, 5, (1, 2, None)),                   # mismatched: the byte loop
+])
+def test_xor_kernel(dev, tiles, extra, offsets):
+    """n = `tiles` of the kernel's tile (bytes of each input a CTA takes)
+    + `extra` bytes.  `offsets` None: an aligned pair and an unaligned one
+    (a[1:], b); else the byte offsets of a, b and out (None: `xor_bytes`
+    allocates it), the out view going straight to the C entry point."""
+    from repro_torch.kernels import _build
+
+    n = tiles * dops.tile() + extra
     g = torch.Generator(device=dev)
     g.manual_seed(n)
-    a = torch.randint(0, 256, (n + 1,), dtype=torch.uint8, device=dev,
+    a = torch.randint(0, 256, (n + 16,), dtype=torch.uint8, device=dev,
                       generator=g)
-    b = torch.randint(0, 256, (n + 1,), dtype=torch.uint8, device=dev,
+    b = torch.randint(0, 256, (n + 16,), dtype=torch.uint8, device=dev,
                       generator=g)
-    for x, y in ((a[:n], b[:n]), (a[1:], b[:n])):      # aligned, unaligned
-        assert torch.equal(dops.xor_bytes(x, y), dref.xor_torch(x, y))
+    if offsets is None:
+        cases = ((a[:n], b[:n], None), (a[1:n + 1], b[:n], None))
+    else:
+        oa, ob, oo = offsets
+        out = None if oo is None else torch.empty(
+            n + 16, dtype=torch.uint8, device=dev)[oo:oo + n]
+        cases = ((a[oa:oa + n], b[ob:ob + n], out),)
+    for x, y, out in cases:
+        if out is None:
+            before = dops.launches
+            out = dops.xor_bytes(x, y)
+            assert dops.launches == before + 1
+        else:
+            _build.check(_build.library("delta").xor_launch(
+                x.data_ptr(), y.data_ptr(), out.data_ptr(), n,
+                _build.stream_ptr(x)), "xor")
+            torch.cuda.synchronize()
+        assert torch.equal(out, dref.xor_torch(x, y))
+    if (tiles, extra) == (1, 1):
+        np.testing.assert_array_equal(out.cpu().numpy(), dref.delta_np(
+            x.cpu().numpy(), y.cpu().numpy()))
 
 
 @pytest.mark.parametrize("n", [1000, 1024, 5000, 3 * 1024 * 1024 + 7])

@@ -87,3 +87,25 @@ def test_verbatim_function_copies(rel, name):
     ours = _top_level(_read("repro_torch", rel), name)
     theirs = _top_level(_swap(_read("repro", rel)), name)
     assert ours == theirs, f"{rel}:{name}"
+
+
+_ROOT = os.path.join(os.path.dirname(__file__), "..")
+_CARD_SCRIPTS = ["chip_smoke.py"] + sorted(
+    os.path.join("tools", f) for f in os.listdir(os.path.join(_ROOT, "tools"))
+    if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("rel", _CARD_SCRIPTS)
+def test_card_scripts_import_no_jax_and_nothing_of_repro(rel):
+    """The scripts run on the card's machine, which has no JAX: every
+    import in them, at any depth of the file, is of the port or of
+    neither package."""
+    with open(os.path.join(_ROOT, rel)) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module and not n.level]
+    assert any(m.startswith("repro_torch") for m in names), rel
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, (rel, bad)
