@@ -4,11 +4,16 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, `nvcc` (sm_90a) and the checkout's `src/`; it
-imports nothing of JAX or of the JAX package `repro`.  Phases, each
-fatal on failure:
+imports nothing of JAX or of the JAX package `repro`.  It sets no
+determinism switch: `torch.use_deterministic_algorithms` stays off and
+CUBLAS_WORKSPACE_CONFIG is left as the caller has it, so every phase
+checks the bit-identity contract as a user of the port gets it.  Phases,
+each fatal on failure:
 
-  0. setup: card name and power limit, deterministic algorithms, TF32
-     off, build of the kernels from `src/repro_torch/kernels/*/csrc`;
+  0. setup: card name and power limit, TF32 off for matmul and cuDNN (a
+     numerics choice, not a determinism switch: the reference computes
+     with f32 params and f32 matmuls), build of the kernels from
+     `src/repro_torch/kernels/*/csrc`;
   1. each kernel (checksum, XOR delta, int8 quantize, int8 dequantize)
      against its plain PyTorch version on the card, bit for bit, at the
      main path's shapes and at edge lengths; device times of kernel,
@@ -18,7 +23,11 @@ fatal on failure:
      call by call in turns (120 each: median, quartiles, range, and a
      verdict) at (a) the (151936, 896) f32 embedding pair, (b) the world
      shards, distinct ones in rotation as the world phases XOR them, and
-     (c) a pass over all 14 parameter leaves of qwen2-0.5b;
+     (c) a pass over all 14 parameter leaves of qwen2-0.5b; XOR, quantize
+     and dequantize also bit for bit against their plain versions at a
+     full-width Mixtral-8x7B expert leaf, (16, 4096, 7168) f32
+     (1,879,048,192 bytes), the largest tensor the kernels see, with
+     their times there;
   2. main path: full-width qwen2-0.5b through `MANARuntime` on cuda,
      6 steps with an image every 2 (XOR-delta params), then a fresh
      runtime restores step 4 (chain 4 -> 2) and its 2 steps must repeat
@@ -30,13 +39,15 @@ fatal on failure:
   4. report: step times, image bytes, write/restore seconds, peak device
      memory, and one JSON line of the kernels with their launches on the
      main path.  The counts are set to 0 just before each main-path
-     phase (2, 3, serve_dense, serve_moe and the world phases) and read
-     just after it, adding the counts that a world phase's spawned
-     socket ranks report from their own processes; each phase must
-     launch the kernels of its path (2: checksum, XOR; 3: checksum,
-     quantize, dequantize; serving: checksum, XOR; world_pipeline and
-     world_cross: XOR), and `launches` is their sum.  The peak device memory is reset before
-     each phase and printed per phase.
+     phase (2, 3, serve_dense, serve_moe, the world phases, cli,
+     quickstart, preempt and train_moe) and read just after it, adding
+     the counts that a world phase's spawned socket ranks report from
+     their own processes; each phase must launch the kernels of its path
+     (2, cli: checksum, XOR; 3: checksum, quantize, dequantize; serving:
+     checksum, XOR; world_pipeline and world_cross: XOR; quickstart,
+     preempt: checksum; train_moe: all four), and `launches` is their
+     sum.  The peak device memory is reset before each phase and printed
+     per phase, with each phase's wall time.
   serve_dense, serve_moe: the serving path (`make_serve_steps`) with live
      decode-state images.  qwen2-0.5b at full width and depth, 8 prompts
      of 2048 tokens; Mixtral-8x7B at full width cut to 4 of 32 layers, 4
@@ -61,13 +72,38 @@ fatal on failure:
      bit for bit arange + step.  Each prints its ranks, bytes on the
      card, image bytes, commit stall, write, restore and phase seconds,
      and peak device memory.
+  cli, quickstart, preempt: the port's entry points, each run in this
+     process through its `main(argv)` (so the counters see its launches),
+     with its output echoed.  cli: `repro_torch.launch.train` on
+     full-width qwen2-0.5b, B 8 x S 1024, an image every 2 steps with
+     XOR-delta params: 4 steps fresh, then `--resume` with 2 more, then 6
+     uninterrupted steps in another directory; the resumed steps' losses
+     must equal the uninterrupted run's steps 4-5 exactly.  quickstart:
+     the quickstart twin on the card (a restore at step 16 and 5 resumed
+     steps).  preempt: the preemption twin at its default 200 steps,
+     which asserts its restarted losses equal the uninterrupted run's and
+     prints PASS.  Step times by host clock.
+  train_moe: Mixtral-8x7B at full width cut to 1 of 32 layers (1.71 B
+     params, 8 experts top-2, SWA 4096), B 1 x S 8192 (twice the window:
+     the SWA path; B 2 does not fit beside an image's snapshot, see
+     `MOE_BATCH`), through `MANARuntime` on the card: 6 steps with
+     images requested at steps 2 and 4 (XOR-delta params; 4 is a delta
+     on 2); a fresh runtime restores step 4 through the chain and its 2
+     steps must repeat steps 4-5's losses and `moe_aux` bit for bit; then
+     a runtime with int8 moments writes one image at step 2, checked as
+     phase 3 checks qwen2-0.5b's.  Free disk under the phase's directory
+     is checked before the images (it fails with the numbers), and each
+     image directory is deleted when its check is done.  Prints step
+     seconds, image bytes, write and restore seconds.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import os
@@ -76,10 +112,6 @@ import subprocess
 import sys
 import tempfile
 import time
-
-# cuBLAS picks a deterministic reduction only with a fixed workspace;
-# this must be set before CUDA initialises
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 MIB = 1 << 20
@@ -480,19 +512,103 @@ def phase_kernels(card: str):
         f"bound_ms={bound_ms(nb):.4f} [{card}]")
     del x, qo, so, xo, lo
     torch.cuda.empty_cache()
+    check_expert_leaf(card, gen)
     return rows
+
+
+# one expert leaf of full-width Mixtral-8x7B as the port stores it (8
+# experts x 2 virtual, d_model 4096, d_ff 14336 / 2): 1,879,048,192 bytes
+EXPERT_LEAF = (16, 4096, 7168)
+
+
+def check_expert_leaf(card: str, gen):
+    """XOR, quantize and dequantize bit for bit against their plain
+    versions at `EXPERT_LEAF` f32, the largest tensor the kernels see
+    (train_moe's params and moments), before that phase relies on them;
+    each kernel's device time there beside its bound."""
+    import torch
+
+    from repro_torch.kernels import _build, as_bytes
+    from repro_torch.kernels.delta import ops as dops, ref as dref
+    from repro_torch.kernels.quantize import ops as qops, ref as qref
+
+    dev = torch.device("cuda")
+    stream = _build.stream_ptr(torch.empty(0, device=dev))
+    x = torch.randn(EXPERT_LEAF, generator=gen, device=dev) * 1e-3
+    n = x.numel()
+    y = x.clone()
+    y.view(-1)[::7] += 1e-3
+    ra, rb = as_bytes(x), as_bytes(y)
+    if not torch.equal(dops.xor_bytes(x, y), dref.xor_torch(ra, rb)):
+        raise AssertionError(f"xor kernel != plain at {EXPERT_LEAF} f32")
+    lib = _build.library("delta")
+    o = torch.empty_like(ra)
+    xor_ms = device_ms(lambda: _build.check(lib.xor_launch(
+        ra.data_ptr(), rb.data_ptr(), o.data_ptr(), ra.numel(), stream),
+        "xor"), reps=5, warmup=1)
+    del y, rb, o
+    torch.cuda.empty_cache()
+    q, sc, pad = qops.quantize(x)
+    q2, s2, pad2 = qref.quantize_torch(x.reshape(-1))
+    if pad != pad2 or not torch.equal(q, q2) or not torch.equal(sc, s2):
+        raise AssertionError(f"quantize kernel != plain at {EXPERT_LEAF} f32")
+    del q2, s2
+    torch.cuda.empty_cache()
+    rows = n // qref.QBLOCK
+    lib = _build.library("quantize")
+    qo = torch.empty_like(q)
+    so = torch.empty_like(sc)
+    q_ms = device_ms(lambda: _build.check(lib.quantize_launch(
+        x.data_ptr(), n, qo.data_ptr(), so.data_ptr(), stream), "quantize"),
+        reps=5, warmup=1)
+    k = qops.dequantize(q, sc, pad, EXPERT_LEAF)
+    if not torch.equal(k, qref.dequantize_torch(q.view(-1), sc.view(-1),
+                                                n).reshape(EXPERT_LEAF)):
+        raise AssertionError(f"dequantize kernel != plain at {EXPERT_LEAF}")
+    dq_ms = device_ms(lambda: _build.check(lib.dequantize_launch(
+        q.data_ptr(), sc.data_ptr(), n, k.data_ptr(), stream), "dequantize"),
+        reps=5, warmup=1)
+    quant_bytes = 4 * n + n + 4 * rows
+    log(f"expert leaf {EXPERT_LEAF} f32 ({4 * n} bytes): xor, quantize and "
+        f"dequantize bit-exact against their plain versions; kernel_ms xor "
+        f"{xor_ms:.4f} (bound {bound_ms(3 * 4 * n):.4f}), quantize "
+        f"{q_ms:.4f}, dequantize {dq_ms:.4f} (bound "
+        f"{bound_ms(quant_bytes):.4f} each) [{card}]")
+    del x, ra, q, sc, k, qo, so
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
 # phases 2-3: the main path
 # ---------------------------------------------------------------------------
 
-def _timed_run(rt, n: int):
+def _timed_run(rt, n: int, on_metrics=None):
     """rt.run(n) with the host time of each step (a step ends when its
     metrics reach the host, i.e. after a device synchronise)."""
     stamps = [time.monotonic()]
-    hist = rt.run(n, on_metrics=lambda s, m: stamps.append(time.monotonic()))
+
+    def stamp(s, m):
+        stamps.append(time.monotonic())
+        if on_metrics is not None:
+            on_metrics(s, m)
+
+    hist = rt.run(n, on_metrics=stamp)
     return hist, [b - a for a, b in zip(stamps, stamps[1:])]
+
+
+def _check_delta_bases(rt, want: dict, label: str) -> None:
+    """Each image step -> the base step of its params (None: full)."""
+    if rt.ckpt.steps() != sorted(want):
+        raise AssertionError(f"{label}: images at {rt.ckpt.steps()}, want "
+                             f"{sorted(want)}")
+    for s, base in want.items():
+        with open(os.path.join(rt.ckpt.step_dir(s), "manifest.json")) as f:
+            arrays = json.load(f)["arrays"]
+        bases = {e.get("base_step") for p, e in arrays.items()
+                 if p.startswith("params/")}
+        if bases != {base}:
+            raise AssertionError(f"{label}: image {s}: params delta bases "
+                                 f"{bases}, want {base}")
 
 
 def phase_resume(cfg, rc, root: str, report: dict):
@@ -510,15 +626,7 @@ def phase_resume(cfg, rc, root: str, report: dict):
     hist, step_s = _timed_run(rt, 6)
     report["step_s"] = step_s
     report["resume_writes"] = list(rt.ckpt.stats)
-    if rt.ckpt.steps() != [2, 4, 6]:
-        raise AssertionError(f"images at {rt.ckpt.steps()}, want [2, 4, 6]")
-    for s, want in ((2, None), (4, 2), (6, 4)):
-        with open(os.path.join(rt.ckpt.step_dir(s), "manifest.json")) as f:
-            arrays = json.load(f)["arrays"]
-        bases = {e.get("base_step") for p, e in arrays.items()
-                 if p.startswith("params/")}
-        if bases != {want}:
-            raise AssertionError(f"image {s}: params delta bases {bases}")
+    _check_delta_bases(rt, {2: None, 4: 2, 6: 4}, "phase 2")
     losses = [h["loss"] for h in hist]
     log(f"phase 2: 6 steps, losses {losses}, images {rt.ckpt.steps()}")
     rt.close()
@@ -547,7 +655,10 @@ def phase_resume(cfg, rc, root: str, report: dict):
     torch.cuda.empty_cache()
 
 
-def phase_int8(cfg, rc, root: str, report: dict):
+def phase_int8(cfg, rc, root: str, report: dict, label: str = "phase 3"):
+    """A runtime with int8 moments writes one image at step 2; restored
+    on the card, params and step are bit-identical, moments within
+    scale/2, and every chunk's digest equals `checksum_np` of its file."""
     import numpy as np
     import torch
 
@@ -556,7 +667,7 @@ def phase_int8(cfg, rc, root: str, report: dict):
     from repro_torch.kernels.quantize import ref as qref
     from repro_torch.tree import tree_leaves
 
-    d = os.path.join(root, "int8")
+    d = os.path.join(root, f"int8_{cfg.arch_id}")
     rt = MANARuntime(cfg, rc, ckpt_dir=d, ckpt_every_steps=2,
                      quantize_moments=True, device="cuda")
     rt.initialize()
@@ -610,7 +721,7 @@ def phase_int8(cfg, rc, root: str, report: dict):
                 raise AssertionError(f"{fm['file']}: card digest "
                                      f"{fm['checksum']} != checksum_np")
             n_files += 1
-    log(f"phase 3: int8-moment image restored in "
+    log(f"{label}: int8-moment image restored in "
         f"{report['restore_int8_s']:.3f} s; params/step bit-identical, "
         f"moments within scale/2 (worst {worst:.4f} scale where the scale is "
         f"a normal f32); {n_files} "
@@ -970,9 +1081,253 @@ def report_worlds(r: dict, peaks: dict, wall: dict, card: str):
         f"{peaks['world_elastic']} bytes [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# entry-point phases: the CLI and the two example twins, in this process
+# ---------------------------------------------------------------------------
+
+def _echoed(main, argv):
+    """`main(argv)` with its standard output captured and echoed line by
+    line (also when it raises); returns the lines."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"  | {line}")
+    return buf.getvalue().splitlines()
+
+
+@contextlib.contextmanager
+def _step_clock():
+    """Yields a list to which, while open, every `MANARuntime.run`
+    appends the host time of each of its steps and the image writes of
+    its manager (the entry points build their runtimes themselves)."""
+    from repro_torch.core.runtime import MANARuntime
+
+    run = MANARuntime.run
+    record = []
+
+    def timed(self, n, on_metrics=None, stop_flag=None):
+        stamps = [time.monotonic()]
+
+        def stamp(s, m):
+            stamps.append(time.monotonic())
+            if on_metrics is not None:
+                on_metrics(s, m)
+
+        try:
+            return run(self, n, stamp, stop_flag)
+        finally:
+            record.append({"step_s": [b - a for a, b in
+                                      zip(stamps, stamps[1:])],
+                           "writes": list(self.ckpt.stats)})
+
+    MANARuntime.run = timed
+    try:
+        yield record
+    finally:
+        MANARuntime.run = run
+
+
+CLI_FLAGS = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "1024",
+             "--ckpt-every-steps", "2", "--delta-params", "--device", "cuda"]
+
+
+def phase_cli(root: str, report: dict):
+    """`repro_torch.launch.train` at full width: 4 steps fresh, then
+    `--resume` for 2, then 6 uninterrupted in another directory; the
+    resumed steps' JSON losses equal the uninterrupted steps 4-5."""
+    from repro_torch.launch import train
+
+    a, b = os.path.join(root, "cli"), os.path.join(root, "cli_ref")
+    out = {}
+    for tag, d, more in (("fresh", a, ["--steps", "4"]),
+                         ("resume", a, ["--steps", "2", "--resume"]),
+                         ("uninterrupted", b, ["--steps", "6"])):
+        t0 = time.monotonic()
+        with _step_clock() as rec:
+            out[tag] = _echoed(train.main,
+                               CLI_FLAGS + more + ["--ckpt-dir", d])
+        report[tag] = {"s": time.monotonic() - t0, **rec[0]}
+    hist = {t: [json.loads(x) for x in lines if x.startswith("{")]
+            for t, lines in out.items()}
+    if out["resume"][0] != "resumed from step 4":
+        raise AssertionError(f"cli: --resume printed {out['resume'][0]!r}")
+    resumed = [h["loss"] for h in hist["resume"]]
+    want = [h["loss"] for h in hist["uninterrupted"] if h["step"] in (4, 5)]
+    if [h["step"] for h in hist["resume"]] != [4, 5] or resumed != want:
+        raise AssertionError(f"cli: resumed losses {resumed} != the "
+                             f"uninterrupted run's steps 4-5 {want}")
+    report["resumed"] = resumed
+    log(f"cli: resumed losses {resumed} equal the uninterrupted run's steps "
+        f"4-5 bit for bit")
+    shutil.rmtree(a, ignore_errors=True)
+    shutil.rmtree(b, ignore_errors=True)
+
+
+def phase_quickstart(root: str, report: dict):
+    """The quickstart twin on the card: 20 steps with an image every 8,
+    a restore of step 16 and 5 resumed steps."""
+    import math
+
+    from repro_torch.examples import quickstart
+
+    d = os.path.join(root, "quickstart")
+    t0 = time.monotonic()
+    with _step_clock() as rec:
+        lines = _echoed(quickstart.main, ["--device", "cuda", "--ckpt-dir", d])
+    report.update(s=time.monotonic() - t0, runs=rec)
+    resumed = [x for x in lines if x.endswith("(resumed)")]
+    losses = [float(x.split()[3]) for x in lines if x.startswith("step")]
+    if ("restored at step 16" not in lines or len(resumed) != 5
+            or not all(math.isfinite(v) for v in losses)):
+        raise AssertionError("quickstart: no restore at step 16 with 5 "
+                             "resumed finite steps")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_preempt(root: str, report: dict):
+    """The preemption twin on the card at its default 200 steps: it
+    asserts its restarted losses equal the uninterrupted run's and
+    prints PASS."""
+    from repro_torch.examples import train_with_preemption as twin
+
+    d = os.path.join(root, "preempt")
+    t0 = time.monotonic()
+    with _step_clock() as rec:
+        lines = _echoed(twin.main, ["--device", "cuda", "--ckpt-dir", d])
+    report.update(s=time.monotonic() - t0, runs=rec)
+    if not any(x.startswith("PASS: ") for x in lines):
+        raise AssertionError("preempt: the twin printed no PASS line")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(d + "_ref", ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# train_moe: full-width Mixtral-8x7B training with checkpoint images
+# ---------------------------------------------------------------------------
+
+# B 1: at B 2 one step of this config peaks at 66.9 GB on its own and
+# runs out of the card's memory while an image's snapshot (a device copy
+# of params and moments, 20.6 GB) is held; at B 1 it peaks at 74.9 GB
+# (tools/probe_determinism.py on an H100 80GB HBM3, 700 W).  S 8192 is
+# twice the SWA window, so training takes the sliding-window path.
+MOE_BATCH, MOE_SEQ = 1, 8192
+
+
+def _need_disk(path: str, nbytes: int, what: str) -> None:
+    free = shutil.disk_usage(path).free
+    if free < nbytes:
+        raise AssertionError(f"train_moe: {what} needs {nbytes} bytes on "
+                             f"disk, {free} free under {path}")
+
+
+def phase_train_moe(cfg, rc, root: str, report: dict):
+    """6 steps with images requested at steps 2 and 4 (XOR-delta params;
+    4 a delta on 2), a fresh runtime restoring 4 through the chain whose
+    2 steps repeat steps 4-5 (loss and `moe_aux`) bit for bit; then an
+    int8-moment image checked as phase 3 does."""
+    import math
+
+    import torch
+
+    from repro_torch.core.runtime import MANARuntime
+
+    state_bytes = 12 * cfg.param_count()          # params, m, v in f32
+    d = os.path.join(root, "moe")
+    os.makedirs(d)
+    _need_disk(d, 2 * state_bytes + (1 << 30), "two full-size images")
+    rt = MANARuntime(cfg, rc, ckpt_dir=d, delta_params=True, device="cuda")
+    t0 = time.monotonic()
+    rt.initialize()
+    torch.cuda.synchronize()
+    report["init_s"] = time.monotonic() - t0
+
+    def request(step, m):
+        if step in (1, 3):
+            rt.request_checkpoint()
+
+    hist, report["step_s"] = _timed_run(rt, 6, request)
+    report["writes"] = list(rt.ckpt.stats)
+    _check_delta_bases(rt, {2: None, 4: 2}, "train_moe")
+    first = [(h["loss"], h["moe_aux"]) for h in hist]
+    if not all(math.isfinite(v) for pair in first for v in pair):
+        raise AssertionError(f"train_moe: losses not finite: {first}")
+    log(f"train_moe: 6 steps, (loss, moe_aux) {first}, images "
+        f"{rt.ckpt.steps()}")
+    rt.close()
+    del rt
+    torch.cuda.empty_cache()
+
+    rt2 = MANARuntime(cfg, rc, ckpt_dir=d, delta_params=True, device="cuda")
+    t0 = time.monotonic()
+    start = rt2.restore(4)
+    torch.cuda.synchronize()
+    report["restore_chain_s"] = time.monotonic() - t0
+    if start != 4:
+        raise AssertionError(f"train_moe: restored at step {start}, want 4")
+    hist2, report["resumed_step_s"] = _timed_run(rt2, 2)
+    resumed = [(h["loss"], h["moe_aux"]) for h in hist2]
+    if resumed != first[4:6]:
+        raise AssertionError(f"train_moe: resume not bit-identical: "
+                             f"{resumed} != {first[4:6]}")
+    log(f"train_moe: restore of step 4 (chain 4->2) in "
+        f"{report['restore_chain_s']:.3f} s; resumed (loss, moe_aux) "
+        f"{resumed} equal steps 4-5 bit for bit")
+    rt2.close()
+    del rt2
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    _need_disk(root, state_bytes // 2 + (1 << 30), "an int8-moment image")
+    phase_int8(cfg, rc, root, report, label="train_moe")
+
+
+def report_train_moe(cfg, rc, r: dict, peak: int, wall: float, card: str):
+    from repro_torch.configs import ARCHS
+
+    log(f"train_moe: {cfg.arch_id} at full width cut to {cfg.n_layers} of "
+        f"{ARCHS[cfg.arch_id].n_layers} "
+        f"layers ({cfg.param_count()} params; d {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}, {cfg.moe.num_experts} experts top-{cfg.moe.top_k}, SWA "
+        f"{cfg.sliding_window}), B={rc.shape.global_batch} "
+        f"S={rc.shape.seq_len}, bf16 compute, f32 params")
+    log(f"train_moe: init_s {r['init_s']:.4f}; step_s "
+        f"{[round(x, 4) for x in r['step_s']]}; resumed "
+        f"{[round(x, 4) for x in r['resumed_step_s']]} [{card}]")
+    for w in r["writes"] + [r["int8_write"]]:
+        log(f"train_moe: image step {w['step']}: {w['bytes']} bytes, "
+            f"snapshot_s {w['snapshot_s']}, write_s {w['write_s']} [{card}]")
+    log(f"train_moe: restore_s chain 4->2 {r['restore_chain_s']:.4f}, int8 "
+        f"image {r['restore_int8_s']:.4f}; phase {wall:.2f} s; "
+        f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB) "
+        f"[{card}]")
+
+
+def report_entry_points(r: dict, peaks: dict, wall: dict, card: str):
+    for tag, run in r["cli"].items():
+        if isinstance(run, dict):
+            log(f"cli {tag}: {run['s']:.2f} s, step_s "
+                f"{[round(x, 4) for x in run['step_s']]}, images "
+                f"{[(w['step'], w['bytes'], w['write_s']) for w in run['writes']]}"
+                f" (step, bytes, write_s) [{card}]")
+    for name in ("quickstart", "preempt"):
+        runs = r[name]["runs"]
+        steps = sorted(x for run in runs for x in run["step_s"][1:])
+        log(f"{name}: {r[name]['s']:.2f} s, {len(runs)} runs, "
+            f"{sum(len(run['step_s']) for run in runs)} steps, median step "
+            f"{steps[len(steps) // 2]:.4f} s (range {steps[0]:.4f}-"
+            f"{steps[-1]:.4f}, first step of each run left out) [{card}]")
+    for name in ("cli", "quickstart", "preempt"):
+        log(f"{name}: phase {wall[name]:.2f} s, max_memory_allocated "
+            f"{peaks[name]} bytes ({peaks[name] / 2**30:.2f} GiB) [{card}]")
+
+
 def main() -> int:
     import torch
 
+    t_start = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on "
               "a GPU", file=sys.stderr)
@@ -994,11 +1349,14 @@ def main() -> int:
     # phase 0: setup
     card = card_line()
     log(card)
-    torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"deterministic algorithms on, allow_tf32 False for matmul and cuDNN")
+        f"deterministic algorithms "
+        f"{'on' if torch.are_deterministic_algorithms_enabled() else 'off'}, "
+        f"CUBLAS_WORKSPACE_CONFIG "
+        f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')!r}; allow_tf32 False "
+        f"for matmul and cuDNN")
     build_s = _build.build_all()
     log(f"kernels built in {build_s:.2f} s (nvcc sm_90a, one per source, "
         f"in parallel)")
@@ -1020,9 +1378,16 @@ def main() -> int:
     moe_cfg = dataclasses.replace(ARCHS["mixtral-8x7b"], n_layers=4)
     moe_rc = RunConfig(model=moe_cfg,
                        shape=ShapeConfig("serve_h100", 8192, 4, "prefill"))
+    # Mixtral-8x7B at full width, cut in depth only (32 -> 1 layer: 1.71 B
+    # params take 16 bytes each with grads and AdamW moments, and an image
+    # in flight holds a device copy of params and moments besides)
+    train_moe_cfg = dataclasses.replace(ARCHS["mixtral-8x7b"], n_layers=1)
+    train_moe_rc = RunConfig(model=train_moe_cfg, shape=ShapeConfig(
+        "train_moe_h100", MOE_SEQ, MOE_BATCH, "train"), attn_chunk=128)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     report: dict = {"serve_dense": {}, "serve_moe": {}, "world_pipeline": {},
-                    "world_cross": {}, "world_elastic": {}}
+                    "world_cross": {}, "world_elastic": {}, "cli": {},
+                    "quickstart": {}, "preempt": {}, "train_moe": {}}
     counters = {"checksum": (cops, "launches"), "xor_delta": (dops, "launches"),
                 "quantize_int8": (qops, "launches"),
                 "dequantize_int8": (qops, "dequantize_launches")}
@@ -1043,6 +1408,17 @@ def main() -> int:
             root, report["world_cross"]), ("xor_delta",)),
         "world_elastic": (lambda: phase_world_elastic(
             root, report["world_elastic"]), ()),
+        # the entry points install a SIGUSR1 handler (put back on close):
+        # after the worlds, whose socket ranks are spawned from here
+        "cli": (lambda: phase_cli(root, report["cli"]),
+                ("checksum", "xor_delta")),
+        "quickstart": (lambda: phase_quickstart(root, report["quickstart"]),
+                       ("checksum",)),
+        "preempt": (lambda: phase_preempt(root, report["preempt"]),
+                    ("checksum",)),
+        "train_moe": (lambda: phase_train_moe(
+            train_moe_cfg, train_moe_rc, root, report["train_moe"]),
+            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
     }
     by_phase, peaks, wall = {}, {}, {}
     for phase, (drive, _) in paths.items():
@@ -1087,6 +1463,9 @@ def main() -> int:
     report_serve("serve_dense", cfg, dense_rc, 8, report["serve_dense"], card)
     report_serve("serve_moe", moe_cfg, moe_rc, 4, report["serve_moe"], card)
     report_worlds(report, peaks, wall, card)
+    report_entry_points(report, peaks, wall, card)
+    report_train_moe(train_moe_cfg, train_moe_rc, report["train_moe"],
+                     peaks["train_moe"], wall["train_moe"], card)
     log(f"main-path launches, each phase from 0: {by_phase}")
     for r in rows:
         r["launches_by_phase"] = {p: c[r["name"]] for p, c in by_phase.items()}
@@ -1101,6 +1480,8 @@ def main() -> int:
     if missing:
         raise AssertionError(f"main path never launched (phase, kernel): "
                              f"{missing}")
+    log(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all, the "
+        f"kernels' build included [{card}]")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,7 +63,10 @@ class MANARuntime:
     when CUDA is absent), less `use_pallas`: the device selects the
     kernels.  `mesh` must be None (sharding is not ported).  With
     `async_ckpt=True` the agent runs the asynchronous 2PC split on the
-    thread writer.
+    thread writer.  The runtime sets no process-wide switch: a resume
+    repeats the uninterrupted run bit for bit on the card without
+    `torch.use_deterministic_algorithms` (the embedding backward, the
+    model's one op that added with atomics, sums in a fixed order).
     """
 
     def __init__(self, cfg: ModelConfig, rc: RunConfig, *, ckpt_dir: str,
@@ -114,9 +117,12 @@ class MANARuntime:
         # a signal landing while the main thread holds that endpoint's
         # lock would self-deadlock if the handler called it directly
         self._preempted = False
+        # the handler it replaced, put back by close() (None: not installed)
+        self._prev_sigusr1 = None
         if install_signal_handler:
-            signal.signal(signal.SIGUSR1,
-                          lambda *_: setattr(self, "_preempted", True))
+            prev = signal.signal(signal.SIGUSR1,
+                                 lambda *_: setattr(self, "_preempted", True))
+            self._prev_sigusr1 = signal.SIG_DFL if prev is None else prev
 
     # ---- lifecycle -----------------------------------------------------------
     def initialize(self) -> None:
@@ -149,8 +155,12 @@ class MANARuntime:
 
     def close(self) -> None:
         """Tear down the lower half's physical comm resources (sockets,
-        server thread).  Also runs automatically when the runtime is
-        garbage-collected."""
+        server thread), which also happens when the runtime is
+        garbage-collected, and put back the SIGUSR1 handler that
+        `install_signal_handler` replaced."""
+        if self._prev_sigusr1 is not None:
+            signal.signal(signal.SIGUSR1, self._prev_sigusr1)
+            self._prev_sigusr1 = None
         self._finalizer()
 
     # ---- snapshot (phase-2 payload) --------------------------------------------

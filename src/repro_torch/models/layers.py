@@ -104,12 +104,60 @@ def init_embed(gen, vocab: int, d_model: int, tie: bool, *, device):
     return params, logical
 
 
+def sum_rows_by_id(rows, ids, n: int):
+    """(N, d) `rows` summed per id into an (n, d) float32 tensor, the
+    rows of each id added in an order fixed by the ids alone: a stable
+    sort puts equal ids together, and each run of equal ids is summed
+    pairwise (rank r takes rank r + s, s = 1, 2, 4, ...).  Every write
+    goes to distinct rows, so no two adds race, and the result is the
+    same bits on every run and every device (an `index_add_` on CUDA
+    adds repeated ids with atomics, in no fixed order)."""
+    order = torch.argsort(ids, stable=True)
+    ids = ids[order]
+    acc = rows[order].to(torch.float32)
+    first = torch.ones_like(ids, dtype=torch.bool)
+    first[1:] = ids[1:] != ids[:-1]
+    starts = torch.nonzero(first).squeeze(1)
+    lengths = torch.diff(starts, append=starts.new_tensor([ids.numel()]))
+    run = torch.cumsum(first, 0) - 1            # integer: exact in any order
+    rank = torch.arange(ids.numel(), device=ids.device) - starts[run]
+    length = lengths[run]
+    step, longest = 1, int(lengths.max())
+    while step < longest:
+        i = torch.nonzero((rank % (2 * step) == 0)
+                          & (rank + step < length)).squeeze(1)
+        acc[i] = acc[i] + acc[i + step]
+        step *= 2
+    out = acc.new_zeros((n, acc.shape[1]))
+    out[ids[starts]] = acc[starts]
+    return out
+
+
+class _EmbedGather(torch.autograd.Function):
+    """rows = table[ids] cast to `dtype`; the backward sums the gradient
+    rows of repeated ids with `sum_rows_by_id` (float32, fixed order),
+    so a training step is bit-reproducible on CUDA without
+    `torch.use_deterministic_algorithms`."""
+
+    @staticmethod
+    def forward(ctx, table, ids, dtype):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = table.shape[0]
+        return torch.index_select(table, 0, ids).to(dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return sum_rows_by_id(grad, ids, ctx.n_rows), None, None
+
+
 def embed_apply(p, tokens, dtype):
-    """Row gather of the embedding table.  `index_select` has a
-    deterministic backward on CUDA under
-    `torch.use_deterministic_algorithms(True)`."""
-    table = p["embedding"].to(dtype)
-    rows = torch.index_select(table, 0, tokens.reshape(-1).to(torch.int64))
+    """Row gather of the embedding table in `dtype` (the f32 rows are
+    cast after the gather, which is the same as gathering from the cast
+    table).  Its backward is deterministic on CUDA (`_EmbedGather`)."""
+    table = p["embedding"]
+    ids = tokens.reshape(-1).to(torch.int64)
+    rows = _EmbedGather.apply(table, ids, dtype)
     return rows.reshape(*tokens.shape, table.shape[-1])
 
 

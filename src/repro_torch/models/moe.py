@@ -92,8 +92,11 @@ def moe_apply(p, x, *, num_experts: int, top_k: int, split: int,
              + torch.arange(split, device=x.device))            # (B,S,k,split)
     v_oh = _one_hot(v_idx.reshape(B, S, kv), ev).to(f32)      # (B,S,kv,Ev)
     sel = v_oh.sum(dim=2)                                       # (B,S,Ev) 0/1
-    gates = torch.einsum("bske,bsk->bse", v_oh,
-                         torch.repeat_interleave(gate_w, split, dim=-1))
+    # each gate repeated `split` times by a broadcast, whose backward is
+    # a sum over the copies (`repeat_interleave` backs through an
+    # `index_add_`, which adds with atomics on CUDA)
+    gate_v = gate_w[..., None].expand(B, S, top_k, split).reshape(B, S, kv)
+    gates = torch.einsum("bske,bsk->bse", v_oh, gate_v)
 
     # ---- group tokens, assign capacity positions ---------------------------
     T = min(group_size, N)

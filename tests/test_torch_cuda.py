@@ -11,8 +11,12 @@ Marked `cuda`; without a card every test skips.  Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: none for kernels, resume and the restore continuation (bit
-for bit); card against CPU in float32 (ring wrap, MoE): rtol 1e-4 with
+Every test runs with `torch.use_deterministic_algorithms` off, as a
+user runs the port.  Tolerance: none for kernels (also at a full-width
+Mixtral expert leaf), resume (through `MANARuntime` and the training
+CLI) and the restore continuation (bit for bit); card against CPU in
+float32 (ring wrap, MoE capacity drops, the reduced Mixtral loss, aux
+loss and gradients): rtol 1e-4 with
 an absolute floor of 1e-4 of the largest magnitude (other summation
 orders, as tests/test_torch_model.py).
 """
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.configs import ARCHS, reduced_config
 from repro_torch.configs.base import RunConfig, ShapeConfig
+from repro_torch.kernels import as_bytes
 from repro_torch.kernels.checksum import ops as cops
 from repro_torch.kernels.checksum import ref as cref
 from repro_torch.kernels.delta import ops as dops
@@ -130,6 +135,27 @@ def test_dequantize_kernel(dev, n):
     assert torch.equal(qops.dequantize(q1, s, pad, (n,)), x)
 
 
+def test_kernels_at_an_expert_leaf_of_full_width_mixtral(dev):
+    """XOR, quantize and dequantize bit for bit against their plain
+    versions at (16, 4096, 7168) f32 (1,879,048,192 bytes), the largest
+    leaf the kernels see (full-width Mixtral-8x7B experts, 2 virtual
+    experts each), as train_moe in chip_smoke.py writes and restores."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    x = torch.randn((16, 4096, 7168), generator=g, device=dev) * 1e-3
+    y = x.clone()
+    y.view(-1)[::7] += 1e-3
+    assert torch.equal(dops.xor_bytes(x, y),
+                       dref.xor_torch(as_bytes(x), as_bytes(y)))
+    del y
+    q, s, pad = qops.quantize(x)
+    q2, s2, pad2 = qref.quantize_torch(x.reshape(-1))
+    assert pad == pad2 == 0 and torch.equal(q, q2) and torch.equal(s, s2)
+    del q2, s2
+    want = qref.dequantize_torch(q.view(-1), s.view(-1), x.numel())
+    assert torch.equal(qops.dequantize(q, s, pad, x.shape).view(-1), want)
+
+
 def test_runtime_resume_on_card(dev, tmp_path):
     """Delta params + int8 moments launch all four kernels on the main
     path (writes and a restore); with delta params alone the resume is
@@ -150,19 +176,80 @@ def test_runtime_resume_on_card(dev, tmp_path):
     assert rt.ckpt.restore(4)[0]["params"]["ln_f"].device.type == "cuda"
     assert all(c > c0 for c, c0 in zip(counts(), before))
 
-    torch.use_deterministic_algorithms(True)
-    try:
-        rt = MANARuntime(cfg, rc, ckpt_dir=str(tmp_path / "delta"),
-                         ckpt_every_steps=2, delta_params=True)
-        rt.initialize()
-        hist = rt.run(4)
-        rt2 = MANARuntime(cfg, rc, ckpt_dir=str(tmp_path / "delta"),
-                          delta_params=True)
-        assert rt2.restore(2) == 2
-        assert [h["loss"] for h in rt2.run(2)] == \
-            [h["loss"] for h in hist][2:4]
-    finally:
-        torch.use_deterministic_algorithms(False)
+    # with the process-wide deterministic switch off, as users run it
+    assert not torch.are_deterministic_algorithms_enabled()
+    rt = MANARuntime(cfg, rc, ckpt_dir=str(tmp_path / "delta"),
+                     ckpt_every_steps=2, delta_params=True)
+    rt.initialize()
+    hist = rt.run(4)
+    rt2 = MANARuntime(cfg, rc, ckpt_dir=str(tmp_path / "delta"),
+                      delta_params=True)
+    assert rt2.restore(2) == 2
+    assert [h["loss"] for h in rt2.run(2)] == [h["loss"] for h in hist][2:4]
+
+
+def test_moe_train_step_on_card_matches_cpu(dev):
+    """Reduced Mixtral (MoE + SWA) in float32: loss, `moe_aux` and every
+    gradient on the card agree with the CPU."""
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = reduced_config(ARCHS["mixtral-8x7b"])
+    rc = RunConfig(model=cfg, shape=ShapeConfig("s", 64, 2, "train"),
+                   loss_chunk=32, attn_chunk=16, dtype="float32")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(5)
+    params, _ = T.init_params(cfg, gen, "cpu")
+    batch = SyntheticDataset(cfg, rc.shape, seed=5).get_batch(0)
+
+    def loss_and_grads(device):
+        leaves = [p.to(device).requires_grad_(True)
+                  for p in tree_leaves(params)]
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        loss, m = T.forward_loss(tree_unflatten(params, leaves), cfg, rc,
+                                 None, b)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), m["moe_aux"].detach(), grads
+
+    lg, ag, gg = loss_and_grads(dev)
+    lc, ac, gc = loss_and_grads("cpu")
+    _f32_close(lg, lc)
+    _f32_close(ag, ac)
+    for a, b in zip(gg, gc):
+        _f32_close(a, b)
+
+
+def test_cli_resume_on_card(dev, tmp_path):
+    """`python -m repro_torch.launch.train --device cuda`: 4 steps, then
+    `--resume` for 2, print the losses of steps 4-5 of an uninterrupted
+    6-step run exactly."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    flags = ["--arch", "qwen2-0.5b", "--reduced", "--batch", "2", "--seq",
+             "64", "--ckpt-every-steps", "2", "--delta-params", "--device",
+             "cuda"]
+
+    def cli(d, *more):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *flags,
+             "--ckpt-dir", str(tmp_path / d), *more], env=env,
+            capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-2000:]
+        return [json.loads(x) for x in out.stdout.splitlines()
+                if x.startswith("{")]
+
+    cli("a", "--steps", "4")
+    resumed = cli("a", "--steps", "2", "--resume")
+    full = cli("b", "--steps", "6")
+    assert [h["step"] for h in resumed] == [4, 5]
+    assert [h["loss"] for h in resumed] == \
+        [h["loss"] for h in full if h["step"] >= 4]
 
 
 # ---------------------------------------------------------------------------
@@ -194,32 +281,27 @@ def test_serve_restore_continuation_on_card(dev, tmp_path):
     from repro_torch.models.transformer import decode_state_logical
 
     cfg, rc, (prefill, serve), params, _, toks = _serve(dev)
-    torch.use_deterministic_algorithms(True)
-    try:
-        logits, st = prefill(params, {"tokens": toks.to(dev)})
-        mgr = CheckpointManager(str(tmp_path), delta_keys=("decode",),
-                                device=dev)
-        c0, x0 = cops.launches, dops.launches
-        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        outs, gen = [], []
-        for i in range(16):
-            logits, st = serve(params, st, tok)
-            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
-            outs.append(logits)
-            gen.append(tok)
-            if i in (6, 10):
-                mgr.save(i, {"decode": st},
-                         {"decode": decode_state_logical(cfg)})
-        restored, _ = CheckpointManager(str(tmp_path), device=dev).restore(10)
-        assert cops.launches > c0 and dops.launches > x0
-        st2, tok2 = restored["decode"], gen[10]
-        assert st2["layers"]["k"].device.type == torch.device(dev).type
-        for i in range(11, 16):
-            logits2, st2 = serve(params, st2, tok2)
-            tok2 = torch.argmax(logits2[:, -1], -1).to(torch.int32)[:, None]
-            assert torch.equal(logits2, outs[i]) and torch.equal(tok2, gen[i])
-    finally:
-        torch.use_deterministic_algorithms(False)
+    logits, st = prefill(params, {"tokens": toks.to(dev)})
+    mgr = CheckpointManager(str(tmp_path), delta_keys=("decode",),
+                            device=dev)
+    c0, x0 = cops.launches, dops.launches
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    outs, gen = [], []
+    for i in range(16):
+        logits, st = serve(params, st, tok)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        outs.append(logits)
+        gen.append(tok)
+        if i in (6, 10):
+            mgr.save(i, {"decode": st}, {"decode": decode_state_logical(cfg)})
+    restored, _ = CheckpointManager(str(tmp_path), device=dev).restore(10)
+    assert cops.launches > c0 and dops.launches > x0
+    st2, tok2 = restored["decode"], gen[10]
+    assert st2["layers"]["k"].device.type == torch.device(dev).type
+    for i in range(11, 16):
+        logits2, st2 = serve(params, st2, tok2)
+        tok2 = torch.argmax(logits2[:, -1], -1).to(torch.int32)[:, None]
+        assert torch.equal(logits2, outs[i]) and torch.equal(tok2, gen[i])
 
 
 def _f32_close(a, b):
@@ -258,12 +340,7 @@ def test_moe_capacity_drop_on_card(dev):
     x = torch.randn(2, 16, 16, generator=gen)
     kw = dict(num_experts=4, top_k=2, split=2, capacity_factor=0.25,
               group_size=32)
-    torch.use_deterministic_algorithms(True)
-    try:
-        yg, ag = moe_apply({k: v.to(dev) for k, v in p.items()}, x.to(dev),
-                           **kw)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    yg, ag = moe_apply({k: v.to(dev) for k, v in p.items()}, x.to(dev), **kw)
     yc, ac = moe_apply(p, x, **kw)
     dropped = (yc == 0).all(-1)
     assert dropped.any()

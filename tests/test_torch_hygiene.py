@@ -46,7 +46,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "          'repro_torch.examples.serve_with_snapshot',\n"
         "          'repro_torch.comm.transport.harness',\n"
         "          'repro_torch.core.restore', 'repro_torch.core.image_store',\n"
-        "          'repro_torch.examples.multirank_simulation'):\n"
+        "          'repro_torch.examples.multirank_simulation',\n"
+        "          'repro_torch.launch.train',\n"
+        "          'repro_torch.examples.quickstart',\n"
+        "          'repro_torch.examples.train_with_preemption'):\n"
         "    assert m in names, m\n"
         "assert not bad, bad\n"
         "print(len(names))\n")

@@ -168,6 +168,47 @@ def test_chunked_xent_matches_reference(model, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_and_its_backward_match_reference(dtype):
+    """Rows of a 16-row table gathered by 256 ids, most of them repeated:
+    the gathered rows equal the reference's exactly, and the gradient
+    (repeated ids summed in a fixed order, `L.sum_rows_by_id`) agrees
+    with the reference's to the file's tolerance (in bfloat16 the
+    reference sums in bfloat16, the port in float32)."""
+    rng = np.random.RandomState(8)
+    table = rng.randn(16, 8).astype(np.float32)
+    ids = rng.randint(0, 12, (4, 64)).astype(np.int32)   # rows 12-15 unused
+    up = rng.randn(4, 64, 8).astype(np.float32)
+    t = torch.from_numpy(table).requires_grad_(True)
+    rows = L.embed_apply({"embedding": t}, torch.from_numpy(ids),
+                         getattr(torch, dtype))
+    rows.backward(_t(up, dtype))
+    jrows, vjp = jax.vjp(lambda w: jL.embed_apply(
+        {"embedding": w}, jnp.asarray(ids), getattr(jnp, dtype)),
+        jnp.asarray(table))
+    (jgrad,) = vjp(_j(up, dtype))
+    np.testing.assert_array_equal(_tnp(rows), _jnp(jrows))
+    assert t.grad.dtype == torch.float32
+    _close(_tnp(t.grad), _jnp(jgrad), dtype)
+    assert not t.grad[12:].any()
+
+
+@pytest.mark.parametrize("n_ids,span", [(1, 1), (7, 1), (300, 5),
+                                        (1000, 997), (513, 40)])
+def test_sum_rows_by_id_equals_index_add(n_ids, span):
+    """Integer-valued rows sum exactly in any order, so the fixed-order
+    pairwise sum must equal `index_add_` bit for bit; runs of one id up
+    to the whole input (span 1) and ids that never repeat."""
+    rng = np.random.RandomState(n_ids)
+    ids = torch.from_numpy(rng.randint(0, span, n_ids).astype(np.int64))
+    rows = torch.from_numpy(rng.randint(-50, 50, (n_ids, 6)).astype(
+        np.float32))
+    want = torch.zeros(span + 3, 6).index_add_(0, ids, rows)
+    got = L.sum_rows_by_id(rows.to(torch.bfloat16), ids, span + 3)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_forward_loss_and_grads_match_reference(model, dtype):
     jcfg, cfg, params = model
     shape = ShapeConfig("t", SEQ, BATCH, "train")

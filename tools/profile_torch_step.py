@@ -8,9 +8,8 @@ B=8, S=1024, bf16 compute).
 Prints, each with the card's name and power limit:
   * the step split into forward (loss), backward and optimizer, by host
     clock around synchronised sections, over 3 steps after 2 warm-up,
-    with deterministic algorithms on as `chip_smoke.py` runs them, then
-    again with `torch.utils.deterministic.fill_uninitialized_memory` off
-    (deterministic mode otherwise fills every fresh allocation with NaN);
+    with deterministic algorithms off as `chip_smoke.py` runs them (what
+    the switch costs: `tools/probe_determinism.py`);
   * the top CUDA kernels of one step by device time, and the device's
     busy share of that step, from `torch.profiler`;
   * an image write split into digest kernels (on the card), the
@@ -25,7 +24,6 @@ import sys
 import tempfile
 import time
 
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
@@ -51,7 +49,6 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
-    torch.use_deterministic_algorithms(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = ARCHS["qwen2-0.5b"]
@@ -88,18 +85,12 @@ def main() -> int:
     warm = []
     for i in range(2):
         step(i, warm)
-    for fill in (True, False):
-        torch.utils.deterministic.fill_uninitialized_memory = fill
-        split = []
-        for i in range(2, 5):
-            step(i, split)
-        tag = f"fill_uninitialized_memory={fill}"
-        for name, k in (("forward", 0), ("backward", 1), ("optimizer", 2)):
-            print(f"{name}_s {[round(s[k], 4) for s in split]} {tag} "
-                  f"[{card}]")
-        print(f"step_s {[round(sum(s), 4) for s in split]} {tag} [{card}]",
-              flush=True)
-    torch.utils.deterministic.fill_uninitialized_memory = True
+    split = []
+    for i in range(2, 5):
+        step(i, split)
+    for name, k in (("forward", 0), ("backward", 1), ("optimizer", 2)):
+        print(f"{name}_s {[round(s[k], 4) for s in split]} [{card}]")
+    print(f"step_s {[round(sum(s), 4) for s in split]} [{card}]", flush=True)
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
