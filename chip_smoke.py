@@ -26,8 +26,11 @@ each fatal on failure:
      (c) a pass over all 14 parameter leaves of qwen2-0.5b; XOR, quantize
      and dequantize also bit for bit against their plain versions at a
      full-width Mixtral-8x7B expert leaf, (16, 4096, 7168) f32
-     (1,879,048,192 bytes), the largest tensor the kernels see, with
-     their times there;
+     (1,879,048,192 bytes), the largest tensor the kernels see, and at
+     hymba-1.5b's largest leaf, (32, 1600, 5504) f32 (1,127,219,200
+     bytes), and at hymba's smallest, (32, 16) f32 (one padded
+     1024-value quantize row), with their times there; checksum also at
+     2 KiB, the smallest leaf's tail, short of one 8 KiB block;
   2. main path: full-width qwen2-0.5b through `MANARuntime` on cuda,
      6 steps with an image every 2 (XOR-delta params), then a fresh
      runtime restores step 4 (chain 4 -> 2) and its 2 steps must repeat
@@ -39,23 +42,29 @@ each fatal on failure:
   4. report: step times, image bytes, write/restore seconds, peak device
      memory, and one JSON line of the kernels with their launches on the
      main path.  The counts are set to 0 just before each main-path
-     phase (2, 3, serve_dense, serve_moe, the world phases, cli,
-     quickstart, preempt and train_moe) and read just after it, adding
+     phase (2, 3, the serve phases, the world phases, cli, quickstart,
+     preempt, train_moe and train_hybrid) and read just after it, adding
      the counts that a world phase's spawned socket ranks report from
      their own processes; each phase must launch the kernels of its path
      (2, cli: checksum, XOR; 3: checksum, quantize, dequantize; serving:
      checksum, XOR; world_pipeline and world_cross: XOR; quickstart,
-     preempt: checksum; train_moe: all four), and `launches` is their
-     sum.  The peak device memory is reset before each phase and printed
-     per phase, with each phase's wall time.
-  serve_dense, serve_moe: the serving path (`make_serve_steps`) with live
-     decode-state images.  qwen2-0.5b at full width and depth, 8 prompts
-     of 2048 tokens; Mixtral-8x7B at full width cut to 4 of 32 layers, 4
-     prompts of 8192 tokens (twice the SWA window: prefill takes the SWA
-     path and the first decode wraps the ring).  Each: prefill, 16
+     preempt: checksum; train_moe, train_hybrid: all four), and
+     `launches` is their sum.  The peak device memory is reset before
+     each phase and printed per phase, with each phase's wall time.
+  serve_dense, serve_moe, serve_hybrid: the serving path
+     (`make_serve_steps`) with live decode-state images.  qwen2-0.5b at
+     full width and depth, 8 prompts of 2048 tokens; Mixtral-8x7B at full
+     width cut to 4 of 32 layers, 4 prompts of 8192 tokens (twice the SWA
+     window: prefill takes the SWA path and the first decode wraps the
+     ring); hymba-1.5b at full width and depth (25 heads over 5 KV heads,
+     stored padded as 48 over 6; SSM heads beside SWA 1024), 8 prompts of
+     2048 tokens (twice the window), uncut: its decode state adds an f32
+     SSM state and a bf16 conv tail to the K/V ring (459,997,184 bytes in
+     all).  Each: prefill, 16
      greedy decode steps, an image of the decode state at token 6 (full)
      and at token 10 (XOR delta on 6); a fresh manager restores token 10
-     through the chain onto the card, and tokens 11-15 decoded from it
+     through the chain onto the card (every leaf equal to the live
+     state's), and tokens 11-15 decoded from it
      must equal the first run's tokens and logits bit for bit.  Decode
      after a shorter prefill must agree with a full forward over the
      same tokens (f32, the first 2 layers, norm-relative 1e-3).
@@ -83,7 +92,8 @@ each fatal on failure:
      steps).  preempt: the preemption twin at its default 200 steps,
      which asserts its restarted losses equal the uninterrupted run's and
      prints PASS.  Step times by host clock.
-  train_moe: Mixtral-8x7B at full width cut to 1 of 32 layers (1.71 B
+  train_moe, train_hybrid: full-width training through `MANARuntime`.
+     train_moe: Mixtral-8x7B at full width cut to 1 of 32 layers (1.71 B
      params, 8 experts top-2, SWA 4096), B 1 x S 8192 (twice the window:
      the SWA path; B 2 does not fit beside an image's snapshot, see
      `MOE_BATCH`), through `MANARuntime` on the card: 6 steps with
@@ -93,8 +103,15 @@ each fatal on failure:
      a runtime with int8 moments writes one image at step 2, checked as
      phase 3 checks qwen2-0.5b's.  Free disk under the phase's directory
      is checked before the images (it fails with the numbers), and each
-     image directory is deleted when its check is done.  Prints step
-     seconds, image bytes, write and restore seconds.
+     image directory is deleted when its check is done.  train_hybrid:
+     the same run for hymba-1.5b at full width and full depth (32
+     layers, 1,798,812,736 params with heads padded), B 4 x S 4096 (the
+     reference's train_4k sequence length, four times the SWA window;
+     cut in batch only, from train_4k's 256, see `HYBRID_BATCH`); its
+     losses must repeat bit for bit.  Each prints step seconds, image bytes,
+     write and restore seconds, the peak device memory of its first two
+     steps (before any image holds a snapshot copy of the state) and of
+     the whole phase.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -333,7 +350,9 @@ def phase_kernels(card: str):
     buf = torch.randint(0, 256, (64 * MIB + 5 + 16,), dtype=torch.uint8,
                         device=dev, generator=gen)
     err = 0
-    cases = [(0, n) for n in (1, 3, 8191, 8192, 64 * MIB, 64 * MIB + 5)]
+    # 2048: a (32, 16) f32 leaf of hymba's, a tail short of one block
+    cases = [(0, n) for n in (1, 3, 2048, 8191, 8192, 64 * MIB,
+                              64 * MIB + 5)]
     cases += [(3, 64 * MIB), (13, 8191 * 3)]      # not 16-byte aligned
     for off, n in cases:
         k = cops.checksum(buf, off, n)
@@ -512,20 +531,28 @@ def phase_kernels(card: str):
         f"bound_ms={bound_ms(nb):.4f} [{card}]")
     del x, qo, so, xo, lo
     torch.cuda.empty_cache()
-    check_expert_leaf(card, gen)
+    check_leaf(card, gen, EXPERT_LEAF, "expert leaf")
+    check_leaf(card, gen, HYMBA_LEAF, "hymba leaf")
+    check_leaf(card, gen, HYMBA_TINY_LEAF, "hymba tiny leaf")
     return rows
 
 
 # one expert leaf of full-width Mixtral-8x7B as the port stores it (8
 # experts x 2 virtual, d_model 4096, d_ff 14336 / 2): 1,879,048,192 bytes
 EXPERT_LEAF = (16, 4096, 7168)
+# hymba-1.5b's largest leaf (the MLP's, 32 layers x d_model 1600 x d_ff
+# 5504): 1,127,219,200 bytes; and its smallest, the per-head SSM
+# constants `A_log`, `D`, `dt_bias` (32 layers x 16 heads: 2 KiB)
+HYMBA_LEAF, HYMBA_TINY_LEAF = (32, 1600, 5504), (32, 16)
 
 
-def check_expert_leaf(card: str, gen):
+def check_leaf(card: str, gen, shape, what: str):
     """XOR, quantize and dequantize bit for bit against their plain
-    versions at `EXPERT_LEAF` f32, the largest tensor the kernels see
-    (train_moe's params and moments), before that phase relies on them;
-    each kernel's device time there beside its bound."""
+    versions at one leaf of `shape` f32, before a phase that relies on
+    them there: `EXPERT_LEAF`, the largest tensor the kernels see
+    (train_moe's params and moments), `HYMBA_LEAF` (train_hybrid's) and
+    `HYMBA_TINY_LEAF` (512 values: quantize pads them to one 1024-value
+    row); each kernel's device time there beside its bound."""
     import torch
 
     from repro_torch.kernels import _build, as_bytes
@@ -534,13 +561,13 @@ def check_expert_leaf(card: str, gen):
 
     dev = torch.device("cuda")
     stream = _build.stream_ptr(torch.empty(0, device=dev))
-    x = torch.randn(EXPERT_LEAF, generator=gen, device=dev) * 1e-3
+    x = torch.randn(shape, generator=gen, device=dev) * 1e-3
     n = x.numel()
     y = x.clone()
     y.view(-1)[::7] += 1e-3
     ra, rb = as_bytes(x), as_bytes(y)
     if not torch.equal(dops.xor_bytes(x, y), dref.xor_torch(ra, rb)):
-        raise AssertionError(f"xor kernel != plain at {EXPERT_LEAF} f32")
+        raise AssertionError(f"xor kernel != plain at {shape} f32")
     lib = _build.library("delta")
     o = torch.empty_like(ra)
     xor_ms = device_ms(lambda: _build.check(lib.xor_launch(
@@ -551,25 +578,25 @@ def check_expert_leaf(card: str, gen):
     q, sc, pad = qops.quantize(x)
     q2, s2, pad2 = qref.quantize_torch(x.reshape(-1))
     if pad != pad2 or not torch.equal(q, q2) or not torch.equal(sc, s2):
-        raise AssertionError(f"quantize kernel != plain at {EXPERT_LEAF} f32")
+        raise AssertionError(f"quantize kernel != plain at {shape} f32")
     del q2, s2
     torch.cuda.empty_cache()
-    rows = n // qref.QBLOCK
+    rows = -(-n // qref.QBLOCK)
     lib = _build.library("quantize")
     qo = torch.empty_like(q)
     so = torch.empty_like(sc)
     q_ms = device_ms(lambda: _build.check(lib.quantize_launch(
         x.data_ptr(), n, qo.data_ptr(), so.data_ptr(), stream), "quantize"),
         reps=5, warmup=1)
-    k = qops.dequantize(q, sc, pad, EXPERT_LEAF)
+    k = qops.dequantize(q, sc, pad, shape)
     if not torch.equal(k, qref.dequantize_torch(q.view(-1), sc.view(-1),
-                                                n).reshape(EXPERT_LEAF)):
-        raise AssertionError(f"dequantize kernel != plain at {EXPERT_LEAF}")
+                                                n).reshape(shape)):
+        raise AssertionError(f"dequantize kernel != plain at {shape}")
     dq_ms = device_ms(lambda: _build.check(lib.dequantize_launch(
         q.data_ptr(), sc.data_ptr(), n, k.data_ptr(), stream), "dequantize"),
         reps=5, warmup=1)
     quant_bytes = 4 * n + n + 4 * rows
-    log(f"expert leaf {EXPERT_LEAF} f32 ({4 * n} bytes): xor, quantize and "
+    log(f"{what} {shape} f32 ({4 * n} bytes): xor, quantize and "
         f"dequantize bit-exact against their plain versions; kernel_ms xor "
         f"{xor_ms:.4f} (bound {bound_ms(3 * 4 * n):.4f}), quantize "
         f"{q_ms:.4f}, dequantize {dq_ms:.4f} (bound "
@@ -764,7 +791,9 @@ def _check_decode_against_forward(params, cfg, rc, prompts, report):
     tokens, or, with MoE, over P + 512 so that both fill whole groups of
     512: then the decoded token is the first of its group and no
     capacity limit drops it in either path (the decode's group of one
-    token drops nothing).  Limit: norm-relative 1e-3."""
+    token drops nothing).  Limit: norm-relative 1e-3 over the vocabulary's
+    columns; the padding columns (-1e9 from the vocabulary mask, which
+    would swamp the norm) must be equal on their own."""
     import torch
 
     from repro_torch.models import transformer as T
@@ -787,11 +816,15 @@ def _check_decode_against_forward(params, cfg, rc, prompts, report):
                                toks[:, P:P + 1])
         x, _, _ = T.forward(cut_params, cut, f32, None, {"tokens": toks})
         full = T._logits(cut_params, cut, x[:, P])
-    err = _rel(dec[:, 0], full)
+    V = cfg.vocab_size
+    err = _rel(dec[:, 0, :V], full[..., :V])
     report["decode_vs_forward"] = (err, P)
     if not (err < 1e-3 and torch.isfinite(dec).all()):
         raise AssertionError(f"decode after a prefill of {P} disagrees with "
                              f"the forward: {err}")
+    if not torch.equal(dec[:, 0, V:], full[..., V:]):
+        raise AssertionError(f"decode's {dec.shape[-1] - V} vocabulary "
+                             f"padding columns differ from the forward's")
 
 
 def phase_serve(cfg, rc, batch: int, root: str, report: dict):
@@ -863,9 +896,15 @@ def phase_serve(cfg, rc, batch: int, root: str, report: dict):
     report["restore_s"] = time.monotonic() - t0
     state2 = restored["decode"]
     live = saved[SNAP_DELTA]
-    for key, a, b in (("pos", state2["pos"], live["pos"]),
-                      ("k", state2["layers"]["k"], live["layers"]["k"]),
-                      ("v", state2["layers"]["v"], live["layers"]["v"])):
+    if sorted(state2["layers"]) != sorted(live["layers"]):
+        raise AssertionError(f"restored decode leaves "
+                             f"{sorted(state2['layers'])} != "
+                             f"{sorted(live['layers'])}")
+    report["state_bytes"] = {key: c.numel() * c.element_size()
+                             for key, c in live["layers"].items()}
+    for key, a, b in [("pos", state2["pos"], live["pos"])] + [
+            (key, state2["layers"][key], c)
+            for key, c in live["layers"].items()]:
         if a.device != b.device or not torch.equal(a, b):
             raise AssertionError(f"restored decode/{key} != the live state "
                                  f"at token {SNAP_DELTA}")
@@ -894,6 +933,8 @@ def report_serve(name: str, cfg, rc, batch: int, r: dict, card: str):
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
         + (f", MoE {cfg.moe.num_experts}e top-{cfg.moe.top_k}"
            if cfg.moe else "")
+        + (f", SSM state {cfg.ssm_state} x d_inner "
+           f"{cfg.ssm_expand * cfg.d_model}" if cfg.ssm_state else "")
         + (f", SWA {cfg.sliding_window}" if cfg.sliding_window else "")
         + f"; B={batch} prompts of {rc.shape.seq_len}, bf16 compute, f32 "
         f"params; {SERVE_STEPS} greedy tokens")
@@ -911,8 +952,9 @@ def report_serve(name: str, cfg, rc, batch: int, r: dict, card: str):
         f"after a prefill of {r['decode_vs_forward'][1]} vs forward (f32, "
         f"first 2 layers) norm-relative {r['decode_vs_forward'][0]:.3e} "
         f"[{card}]")
-    log(f"{name}: max_memory_allocated {r['peak']} bytes "
-        f"({r['peak'] / 2**30:.2f} GiB) [{card}]")
+    log(f"{name}: decode state by leaf {r['state_bytes']} bytes, "
+        f"{sum(r['state_bytes'].values())} in all; max_memory_allocated "
+        f"{r['peak']} bytes ({r['peak'] / 2**30:.2f} GiB) [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1205,39 +1247,62 @@ def phase_preempt(root: str, report: dict):
 
 
 # ---------------------------------------------------------------------------
-# train_moe: full-width Mixtral-8x7B training with checkpoint images
+# train_moe, train_hybrid: full-width training with checkpoint images
 # ---------------------------------------------------------------------------
 
 # B 1: at B 2 one step of this config peaks at 66.9 GB on its own and
 # runs out of the card's memory while an image's snapshot (a device copy
 # of params and moments, 20.6 GB) is held; at B 1 it peaks at 74.9 GB
-# (tools/probe_determinism.py on an H100 80GB HBM3, 700 W).  S 8192 is
+# (tools/probe_determinism.py on an H100 80GB HBM3, 700 W, with an
+# optimizer update that held every gradient to its end; the phase, with
+# the update freeing them as it goes, peaks at 73.1 GB).  S 8192 is
 # twice the SWA window, so training takes the sliding-window path.
 MOE_BATCH, MOE_SEQ = 1, 8192
+# hymba-1.5b at full width and depth, B 4 x S 4096: the reference's
+# train_4k sequence length, four times the SWA window of 1024, so
+# training takes the sliding-window path; cut in batch only, from
+# train_4k's 256.  At B 4 the phase peaks at 73.7 GB with an image's
+# snapshot (a device copy of params and moments, 21.6 GB) held, 51.4 GB
+# before it (an H100 80GB HBM3, 700 W): the optimizer update, not the
+# batch, sets the peak
+HYBRID_BATCH, HYBRID_SEQ = 4, 4096
 
 
-def _need_disk(path: str, nbytes: int, what: str) -> None:
+def _stored_params(cfg) -> int:
+    """Parameters as the port stores them (heads and vocab padded), which
+    `param_count` leaves out."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() for t in tree_leaves(init_params(cfg, None,
+                                                          "meta")[0]))
+
+
+def _need_disk(path: str, nbytes: int, what: str, label: str) -> None:
     free = shutil.disk_usage(path).free
     if free < nbytes:
-        raise AssertionError(f"train_moe: {what} needs {nbytes} bytes on "
+        raise AssertionError(f"{label}: {what} needs {nbytes} bytes on "
                              f"disk, {free} free under {path}")
 
 
-def phase_train_moe(cfg, rc, root: str, report: dict):
+def phase_train_wide(cfg, rc, root: str, report: dict, label: str):
     """6 steps with images requested at steps 2 and 4 (XOR-delta params;
     4 a delta on 2), a fresh runtime restoring 4 through the chain whose
-    2 steps repeat steps 4-5 (loss and `moe_aux`) bit for bit; then an
-    int8-moment image checked as phase 3 does."""
+    2 steps repeat steps 4-5 (loss, and `moe_aux` for MoE) bit for bit;
+    then an int8-moment image checked as phase 3 does.  Records the peak
+    device memory of the first two steps, before any image holds a
+    snapshot copy of the state."""
     import math
 
     import torch
 
     from repro_torch.core.runtime import MANARuntime
 
-    state_bytes = 12 * cfg.param_count()          # params, m, v in f32
-    d = os.path.join(root, "moe")
+    keys = ("loss", "moe_aux") if cfg.moe is not None else ("loss",)
+    state_bytes = 12 * _stored_params(cfg)        # params, m, v in f32
+    d = os.path.join(root, label)
     os.makedirs(d)
-    _need_disk(d, 2 * state_bytes + (1 << 30), "two full-size images")
+    _need_disk(d, 2 * state_bytes + (1 << 30), "two full-size images", label)
     rt = MANARuntime(cfg, rc, ckpt_dir=d, delta_params=True, device="cuda")
     t0 = time.monotonic()
     rt.initialize()
@@ -1245,17 +1310,18 @@ def phase_train_moe(cfg, rc, root: str, report: dict):
     report["init_s"] = time.monotonic() - t0
 
     def request(step, m):
+        if step == 1:
+            report["peak_before_images"] = torch.cuda.max_memory_allocated()
         if step in (1, 3):
             rt.request_checkpoint()
 
     hist, report["step_s"] = _timed_run(rt, 6, request)
     report["writes"] = list(rt.ckpt.stats)
-    _check_delta_bases(rt, {2: None, 4: 2}, "train_moe")
-    first = [(h["loss"], h["moe_aux"]) for h in hist]
+    _check_delta_bases(rt, {2: None, 4: 2}, label)
+    first = [tuple(h[k] for k in keys) for h in hist]
     if not all(math.isfinite(v) for pair in first for v in pair):
-        raise AssertionError(f"train_moe: losses not finite: {first}")
-    log(f"train_moe: 6 steps, (loss, moe_aux) {first}, images "
-        f"{rt.ckpt.steps()}")
+        raise AssertionError(f"{label}: losses not finite: {first}")
+    log(f"{label}: 6 steps, {keys} {first}, images {rt.ckpt.steps()}")
     rt.close()
     del rt
     torch.cuda.empty_cache()
@@ -1266,43 +1332,54 @@ def phase_train_moe(cfg, rc, root: str, report: dict):
     torch.cuda.synchronize()
     report["restore_chain_s"] = time.monotonic() - t0
     if start != 4:
-        raise AssertionError(f"train_moe: restored at step {start}, want 4")
+        raise AssertionError(f"{label}: restored at step {start}, want 4")
     hist2, report["resumed_step_s"] = _timed_run(rt2, 2)
-    resumed = [(h["loss"], h["moe_aux"]) for h in hist2]
+    resumed = [tuple(h[k] for k in keys) for h in hist2]
     if resumed != first[4:6]:
-        raise AssertionError(f"train_moe: resume not bit-identical: "
+        raise AssertionError(f"{label}: resume not bit-identical: "
                              f"{resumed} != {first[4:6]}")
-    log(f"train_moe: restore of step 4 (chain 4->2) in "
-        f"{report['restore_chain_s']:.3f} s; resumed (loss, moe_aux) "
+    log(f"{label}: restore of step 4 (chain 4->2) in "
+        f"{report['restore_chain_s']:.3f} s; resumed {keys} "
         f"{resumed} equal steps 4-5 bit for bit")
     rt2.close()
     del rt2
     shutil.rmtree(d, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    _need_disk(root, state_bytes // 2 + (1 << 30), "an int8-moment image")
-    phase_int8(cfg, rc, root, report, label="train_moe")
+    _need_disk(root, state_bytes // 2 + (1 << 30), "an int8-moment image",
+               label)
+    phase_int8(cfg, rc, root, report, label=label)
 
 
-def report_train_moe(cfg, rc, r: dict, peak: int, wall: float, card: str):
+def report_train_wide(label: str, cfg, rc, r: dict, peak: int, wall: float,
+                      card: str):
     from repro_torch.configs import ARCHS
 
-    log(f"train_moe: {cfg.arch_id} at full width cut to {cfg.n_layers} of "
-        f"{ARCHS[cfg.arch_id].n_layers} "
-        f"layers ({cfg.param_count()} params; d {cfg.d_model}, d_ff "
-        f"{cfg.d_ff}, {cfg.moe.num_experts} experts top-{cfg.moe.top_k}, SWA "
-        f"{cfg.sliding_window}), B={rc.shape.global_batch} "
+    depth = (f"full depth, {cfg.n_layers} layers"
+             if cfg.n_layers == ARCHS[cfg.arch_id].n_layers else
+             f"cut to {cfg.n_layers} of {ARCHS[cfg.arch_id].n_layers} layers")
+    log(f"{label}: {cfg.arch_id} at full width, {depth} "
+        f"({_stored_params(cfg)} params stored; d {cfg.d_model}, "
+        f"{cfg.n_heads_padded}/{cfg.n_kv_heads_padded} padded heads, d_ff "
+        f"{cfg.d_ff}"
+        + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k}"
+           if cfg.moe else "")
+        + (f", SSM state {cfg.ssm_state} x d_inner "
+           f"{cfg.ssm_expand * cfg.d_model}" if cfg.ssm_state else "")
+        + f", SWA {cfg.sliding_window}), B={rc.shape.global_batch} "
         f"S={rc.shape.seq_len}, bf16 compute, f32 params")
-    log(f"train_moe: init_s {r['init_s']:.4f}; step_s "
+    log(f"{label}: init_s {r['init_s']:.4f}; step_s "
         f"{[round(x, 4) for x in r['step_s']]}; resumed "
         f"{[round(x, 4) for x in r['resumed_step_s']]} [{card}]")
     for w in r["writes"] + [r["int8_write"]]:
-        log(f"train_moe: image step {w['step']}: {w['bytes']} bytes, "
+        log(f"{label}: image step {w['step']}: {w['bytes']} bytes, "
             f"snapshot_s {w['snapshot_s']}, write_s {w['write_s']} [{card}]")
-    log(f"train_moe: restore_s chain 4->2 {r['restore_chain_s']:.4f}, int8 "
+    before = r["peak_before_images"]
+    log(f"{label}: restore_s chain 4->2 {r['restore_chain_s']:.4f}, int8 "
         f"image {r['restore_int8_s']:.4f}; phase {wall:.2f} s; "
-        f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB) "
-        f"[{card}]")
+        f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB), of "
+        f"the first two steps before any image {before} bytes "
+        f"({before / 2**30:.2f} GiB) [{card}]")
 
 
 def report_entry_points(r: dict, peaks: dict, wall: dict, card: str):
@@ -1384,10 +1461,19 @@ def main() -> int:
     train_moe_cfg = dataclasses.replace(ARCHS["mixtral-8x7b"], n_layers=1)
     train_moe_rc = RunConfig(model=train_moe_cfg, shape=ShapeConfig(
         "train_moe_h100", MOE_SEQ, MOE_BATCH, "train"), attn_chunk=128)
+    # hymba-1.5b at full width and depth: serving as serve_dense does,
+    # training cut in batch only (`HYBRID_BATCH`)
+    hybrid_cfg = ARCHS["hymba-1.5b"]
+    hybrid_rc = RunConfig(model=hybrid_cfg,
+                          shape=ShapeConfig("serve_h100", 2048, 8, "prefill"))
+    train_hybrid_rc = RunConfig(model=hybrid_cfg, shape=ShapeConfig(
+        "train_hybrid_h100", HYBRID_SEQ, HYBRID_BATCH, "train"),
+        attn_chunk=128)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
-    report: dict = {"serve_dense": {}, "serve_moe": {}, "world_pipeline": {},
-                    "world_cross": {}, "world_elastic": {}, "cli": {},
-                    "quickstart": {}, "preempt": {}, "train_moe": {}}
+    report: dict = {"serve_dense": {}, "serve_moe": {}, "serve_hybrid": {},
+                    "world_pipeline": {}, "world_cross": {},
+                    "world_elastic": {}, "cli": {}, "quickstart": {},
+                    "preempt": {}, "train_moe": {}, "train_hybrid": {}}
     counters = {"checksum": (cops, "launches"), "xor_delta": (dops, "launches"),
                 "quantize_int8": (qops, "launches"),
                 "dequantize_int8": (qops, "dequantize_launches")}
@@ -1402,6 +1488,9 @@ def main() -> int:
         "serve_moe": (lambda: phase_serve(moe_cfg, moe_rc, 4, root,
                                           report["serve_moe"]),
                       ("checksum", "xor_delta")),
+        "serve_hybrid": (lambda: phase_serve(hybrid_cfg, hybrid_rc, 8, root,
+                                             report["serve_hybrid"]),
+                         ("checksum", "xor_delta")),
         "world_pipeline": (lambda: phase_world_pipeline(
             root, report["world_pipeline"]), ("xor_delta",)),
         "world_cross": (lambda: phase_world_cross(
@@ -1416,8 +1505,13 @@ def main() -> int:
                        ("checksum",)),
         "preempt": (lambda: phase_preempt(root, report["preempt"]),
                     ("checksum",)),
-        "train_moe": (lambda: phase_train_moe(
-            train_moe_cfg, train_moe_rc, root, report["train_moe"]),
+        "train_moe": (lambda: phase_train_wide(
+            train_moe_cfg, train_moe_rc, root, report["train_moe"],
+            "train_moe"),
+            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+        "train_hybrid": (lambda: phase_train_wide(
+            hybrid_cfg, train_hybrid_rc, root, report["train_hybrid"],
+            "train_hybrid"),
             ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
     }
     by_phase, peaks, wall = {}, {}, {}
@@ -1440,8 +1534,8 @@ def main() -> int:
             + (f" (of them in socket rank processes: {elsewhere})"
                if elsewhere else ""))
     shutil.rmtree(root, ignore_errors=True)
-    report["serve_dense"]["peak"] = peaks["serve_dense"]
-    report["serve_moe"]["peak"] = peaks["serve_moe"]
+    for name in ("serve_dense", "serve_moe", "serve_hybrid"):
+        report[name]["peak"] = peaks[name]
 
     # phase 4: report
     steps = report["step_s"]
@@ -1462,10 +1556,14 @@ def main() -> int:
         f"({peaks['int8'] / 2**30:.2f} GiB) [{card}]")
     report_serve("serve_dense", cfg, dense_rc, 8, report["serve_dense"], card)
     report_serve("serve_moe", moe_cfg, moe_rc, 4, report["serve_moe"], card)
+    report_serve("serve_hybrid", hybrid_cfg, hybrid_rc, 8,
+                 report["serve_hybrid"], card)
     report_worlds(report, peaks, wall, card)
     report_entry_points(report, peaks, wall, card)
-    report_train_moe(train_moe_cfg, train_moe_rc, report["train_moe"],
-                     peaks["train_moe"], wall["train_moe"], card)
+    for name, c, r in (("train_moe", train_moe_cfg, train_moe_rc),
+                       ("train_hybrid", hybrid_cfg, train_hybrid_rc)):
+        report_train_wide(name, c, r, report[name], peaks[name], wall[name],
+                          card)
     log(f"main-path launches, each phase from 0: {by_phase}")
     for r in rows:
         r["launches_by_phase"] = {p: c[r["name"]] for p, c in by_phase.items()}

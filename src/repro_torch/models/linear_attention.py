@@ -1,0 +1,119 @@
+"""Chunked linear attention with per-channel decay: the shared engine of
+the Mamba-2-style SSM heads (hymba) and RWKV-6 time-mix.
+
+Port of `repro.models.linear_attention`.  Recurrences (state S:
+(B, H, dk, dv), f32):
+
+  mode="mamba":  S_t = exp(lw_t) * S_{t-1} + k_t^T v_t ;  y_t = q_t S_t
+  mode="rwkv":   y_t = r_t S_{t-1} + (r_t * (u * k_t)) v_t ;
+                 S_t = exp(lw_t) * S_{t-1} + k_t^T v_t
+
+(lw = per-channel log decay <= 0, applied along dk.)  The semantics are
+the reference's: chunks of C = the largest divisor of S not above
+min(request, S, SAFE_CHUNK); inside a chunk the pairwise decays factor as
+exp(W_i - W_j) = exp(W_i) * exp(-W_j), with W the in-chunk cumulative
+log decay, which stays inside f32's exp range because each step's log
+decay is clipped to [-LW_MIN, 0] first (span <= C * LW_MIN = 80 < 88);
+the body runs in f32 whatever the inputs' dtype, the output is cast
+back to q's dtype and the state stays f32.
+
+The reference scans the chunks one after another (`lax.scan`, ~15 ops a
+chunk).  Eager PyTorch pays a launch per op, so here everything that does
+not depend on the carried state is computed for all n = S / C chunks at
+once, in the reference's einsums: the decays, the masked (C, C)
+intra-chunk term, each chunk's state contribution k_fut^T v and its
+decay exp(w_last).  Only the recurrence state_c = state_{c-1} * decay_c
++ delta_c runs as a loop of n steps (the state before each chunk kept),
+and one batched einsum reads every chunk's carried state out.  Results
+agree with the reference's to f32 rounding.  The per-chunk contributions
+take (B, n, H, dk, dv) f32.
+"""
+from __future__ import annotations
+
+import torch
+
+DEFAULT_CHUNK = 32
+LW_MIN = 2.5   # per-step log-decay floor
+SAFE_CHUNK = 32  # hard cap: chunk * LW_MIN = 80 < 88 (f32 exp range)
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in ("mamba", "rwkv"):
+        raise ValueError(f"mode must be 'mamba' or 'rwkv', not {mode!r}")
+
+
+def chunked_linear_attention(q, k, v, lw, *, mode: str, u=None,
+                             state0=None, chunk: int = DEFAULT_CHUNK):
+    """q,k: (B,S,H,dk); v: (B,S,H,dv); lw: (B,S,H,dk) log-decay <= 0.
+
+    Returns (out (B,S,H,dv) in q.dtype, final_state (B,H,dk,dv) f32).
+    """
+    _check_mode(mode)
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    chunk = min(chunk, S, SAFE_CHUNK)
+    while S % chunk:  # largest divisor <= requested
+        chunk -= 1
+    n = S // chunk
+    f32 = torch.float32
+
+    def to_chunks(x):                            # (B, n, C, H, *) in f32
+        return x.reshape(B, n, chunk, *x.shape[2:]).to(f32)
+
+    qf, kf, vf = map(to_chunks, (q, k, v))
+    lx = torch.clamp(to_chunks(lw), -LW_MIN, 0.0)
+    W = torch.cumsum(lx, dim=2)                  # inclusive in-chunk decay
+    if mode == "mamba":
+        q_dec = qf * torch.exp(W)                # readout after decay+add
+    else:
+        q_dec = qf * torch.exp(W - lx)           # readout before this step
+    k_dec = kf * torch.exp(-W)
+    # intra-chunk pairwise terms (lower-triangular (C, C) products)
+    causal_lower = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                         device=q.device),
+                              diagonal=0 if mode == "mamba" else -1)
+    A = torch.einsum("bnihk,bnjhk->bnhij", q_dec, k_dec)
+    A = torch.where(causal_lower, A, torch.zeros((), dtype=f32,
+                                                 device=q.device))
+    if mode == "rwkv":
+        diag = torch.einsum("bnihk,bnihk->bnhi", qf, kf * u.to(f32))
+        A = A + torch.diag_embed(diag)
+    out = torch.einsum("bnhij,bnjhv->bnihv", A, vf)
+    # each chunk's state contribution and decay, then the recurrence
+    w_last = W[:, :, -1:]                        # (B,n,1,H,dk)
+    k_fut = kf * torch.exp(w_last - W)
+    delta = torch.einsum("bnjhk,bnjhv->bnhkv", k_fut, vf)
+    decay = torch.exp(w_last[:, :, 0])[..., None]          # (B,n,H,dk,1)
+    state = (torch.zeros((B, H, dk, dv), dtype=f32, device=q.device)
+             if state0 is None else state0.to(f32))
+    before = []
+    for c in range(n):
+        before.append(state)
+        state = state * decay[:, c] + delta[:, c]
+    # inter-chunk contribution from the state carried into each chunk
+    out = out + torch.einsum("bnihk,bnhkv->bnihv", q_dec,
+                             torch.stack(before, dim=1))
+    return out.reshape(B, S, H, dv).to(q.dtype), state
+
+
+def linear_attention_step(q, k, v, lw, *, mode: str, u=None, state=None):
+    """Single-token recurrence for decode. q,k: (B,H,dk); v: (B,H,dv);
+    lw: (B,H,dk).  Returns (out (B,H,dv), new_state (B,H,dk,dv) f32)."""
+    _check_mode(mode)
+    B, H, dk = q.shape
+    dv = v.shape[-1]
+    f32 = torch.float32
+    if state is None:
+        state = torch.zeros((B, H, dk, dv), dtype=f32, device=q.device)
+    qf, kf, vf = (x.to(f32) for x in (q, k, v))
+    kv = torch.einsum("bhk,bhv->bhkv", kf, vf)
+    lwf = torch.clamp(lw.to(f32), -LW_MIN, 0.0)
+    decay = torch.exp(lwf)[..., None]                     # (B,H,dk,1)
+    if mode == "mamba":
+        state = state * decay + kv
+        out = torch.einsum("bhk,bhkv->bhv", qf, state)
+    else:
+        read = state + kv * u.to(f32)[None, :, :, None]
+        out = torch.einsum("bhk,bhkv->bhv", qf, read)
+        state = state * decay + kv
+    return out.to(q.dtype), state

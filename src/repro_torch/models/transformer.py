@@ -1,22 +1,27 @@
-"""Model assembly for dense and MoE decoders: init, forward,
-forward_loss, and the serving entry points prefill and decode_step.
+"""Model assembly for dense, MoE and hybrid-SSM decoders: init,
+forward, forward_loss, and the serving entry points prefill and
+decode_step.
 
-Port of `repro.models.transformer` for the dense and moe families (GQA,
-optional QKV bias, RoPE, SwiGLU or routed experts, full causal or
-sliding-window attention, tied or untied head).  Parameter names,
-shapes, dtypes and the logical-axes trees (params and decode state) are
-the reference's: blocks are stacked on a leading (L, ...) layer axis and
-heads are stored padded (`cfg.n_heads_padded`, `cfg.n_kv_heads_padded`),
-so every flattened leaf path (`params/blocks/attn/wq`,
-`decode/layers/k`, ...) is the same in both packages and images move
-between them.  Other families (hybrid ssm, rwkv, enc-dec, vision
-cross-attention) raise `NotImplementedError`; ROADMAP.md queues them.
+Port of `repro.models.transformer` for the dense, moe and hybrid
+families (GQA, optional QKV bias, RoPE, SwiGLU or routed experts, full
+causal or sliding-window attention, tied or untied head; hybrid blocks
+run Mamba-2-style SSM heads, `repro_torch.models.mamba`, beside
+attention on the same normed input and average the two).  Parameter
+names, shapes, dtypes and the logical-axes trees (params and decode
+state) are the reference's: blocks are stacked on a leading (L, ...)
+layer axis and heads are stored padded (`cfg.n_heads_padded`,
+`cfg.n_kv_heads_padded`), so every flattened leaf path
+(`params/blocks/attn/wq`, `decode/layers/k`, `decode/layers/ssm`, ...)
+is the same in both packages and images move between them.  Other families (rwkv, enc-dec,
+vision cross-attention) raise `NotImplementedError`; ROADMAP.md queues
+them.
 
 Decode is functional, as the reference's: `decode_step` returns a new
 state and leaves the one it was given as it was (a live image taken
 between two steps depends on that).  It copies the stacked caches once
 per step and writes the new token's K/V into that copy at a host
-integer slot; `pos` is read to the host once per step.
+integer slot, and a hybrid block's new SSM state and conv tail over its
+layer's slices of the copy; `pos` is read to the host once per step.
 
 Remat: with `rc.remat_policy` other than "none", each block runs under
 `torch.utils.checkpoint` (non-reentrant) and saves only its input, the
@@ -35,14 +40,15 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Dense and MoE decoders, with or without sliding-window attention,
-    are ported; the other families are not yet."""
+    """Dense, MoE and hybrid-SSM decoders, with or without sliding-window
+    attention, are ported; the other families are not yet."""
     other = [name for name, on in (
-        ("hybrid ssm", cfg.ssm_state), ("rwkv", cfg.rwkv),
+        ("rwkv", cfg.rwkv),
         ("enc-dec", cfg.enc_dec),
         ("vision cross-attention", cfg.cross_attn_every)) if on]
     if other:
@@ -69,8 +75,8 @@ def moe_split(cfg: ModelConfig, model_axis: int = 16) -> int:
 
 
 def _init_dense_blocks(gen, cfg: ModelConfig, device):
-    """Stacked (L, ...) dense or MoE blocks: the reference's vmapped
-    per-layer init, drawn as one tensor per leaf."""
+    """Stacked (L, ...) dense, MoE or hybrid blocks: the reference's
+    vmapped per-layer init, drawn as one tensor per leaf."""
     n = cfg.n_layers
     params: Dict[str, Any] = {"ln1": L._norm_init((n, cfg.d_model), device),
                               "ln2": L._norm_init((n, cfg.d_model), device)}
@@ -78,6 +84,10 @@ def _init_dense_blocks(gen, cfg: ModelConfig, device):
     params["attn"], logical["attn"] = attn.init_attention(
         gen, cfg.d_model, cfg.n_heads_padded, cfg.n_kv_heads_padded,
         cfg.head_dim, cfg.qkv_bias, device=device, stack=n)
+    if cfg.ssm_state:
+        params["mamba"], logical["mamba"] = mam.init_mamba(
+            gen, cfg.d_model, cfg.ssm_state, cfg.ssm_expand, device=device,
+            stack=n)
     if cfg.moe is not None:
         params["moe"], logical["moe"] = moe_mod.init_moe(
             gen, cfg.d_model, cfg.d_ff, cfg.moe.num_experts, moe_split(cfg),
@@ -140,12 +150,17 @@ def _ffn(cfg, rules, p, h):
 
 
 def _mixer_block_seq(cfg, rc, rules, p, x, positions, causal=True):
-    """One dense/MoE block over a full sequence.
+    """One dense/MoE/hybrid block over a full sequence.
 
     Returns (x, aux, cache): cache holds what prefill must keep."""
+    cache = {}
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     a_out, (k, v) = _self_attention_seq(cfg, rc, p["attn"], h, positions,
                                         causal)
+    if cfg.ssm_state:
+        m_out, cache["ssm"], cache["conv"] = mam.mamba_apply(
+            p["mamba"], h, chunk=rc.la_chunk)
+        a_out = (a_out + m_out) * 0.5
     x = x + a_out
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _ffn(cfg, rules, p, h2)
@@ -153,7 +168,8 @@ def _mixer_block_seq(cfg, rc, rules, p, x, positions, causal=True):
     # prefill KV cache: SWA keeps the last `window` positions (ring layout)
     if cfg.sliding_window and causal:
         k, v = k[:, -cfg.sliding_window:], v[:, -cfg.sliding_window:]
-    return x, aux, {"k": k, "v": v}
+    cache["k"], cache["v"] = k, v
+    return x, aux, cache
 
 
 def _layer_params(blocks, i: int):
@@ -167,7 +183,8 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
     """Full-sequence forward.  batch: tokens (B,S).
 
     Returns (hidden (B,S,d), aux-losses, caches | None); caches are
-    {"k", "v"} stacked (L, B, T, K, hd)."""
+    {"k", "v"} stacked (L, B, T, K, hd), and for hybrid blocks also
+    {"ssm"} (L, B, H, N, hd) f32 and {"conv"} (L, B, 3, d_in)."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -200,7 +217,7 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
     stacked = None
     if want_cache:
         stacked = {key: torch.stack([c[key] for c in caches])
-                   for key in ("k", "v")}
+                   for key in caches[0]}
     return x, {"moe_aux": moe_aux}, stacked
 
 
@@ -241,28 +258,43 @@ def _kv_capacity(cfg: ModelConfig, seq_len: int) -> int:
 def init_decode_state(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig,
                       device=None):
     """Zero-initialized decode caches for a (arch, shape) cell, layout
-    (L, B, T, K, hd), on `device` (None -> cuda, or raises)."""
+    (L, B, T, K, hd), plus for hybrid blocks the SSM state (L, B, H, N,
+    d_in/H) f32 and the conv tail (L, B, 3, d_in), on `device` (None ->
+    cuda, or raises)."""
     _require_ported(cfg)
     device = resolve_device(device)
+    Lh, B = cfg.n_layers, shape.global_batch
     T = _kv_capacity(cfg, shape.seq_len)
-    kv_shape = (cfg.n_layers, shape.global_batch, T, cfg.n_kv_heads_padded,
-                cfg.head_dim)
+    kv_shape = (Lh, B, T, cfg.n_kv_heads_padded, cfg.head_dim)
     dt = getattr(torch, rc.dtype)
+    layers = {"k": torch.zeros(kv_shape, dtype=dt, device=device),
+              "v": torch.zeros(kv_shape, dtype=dt, device=device)}
+    if cfg.ssm_state:
+        d_in = cfg.ssm_expand * cfg.d_model
+        nh = mam.mamba_heads(d_in)
+        layers["ssm"] = torch.zeros((Lh, B, nh, cfg.ssm_state, d_in // nh),
+                                    dtype=torch.float32, device=device)
+        layers["conv"] = torch.zeros((Lh, B, mam.CONV_W - 1, d_in), dtype=dt,
+                                     device=device)
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "layers": {"k": torch.zeros(kv_shape, dtype=dt, device=device),
-                       "v": torch.zeros(kv_shape, dtype=dt, device=device)}}
+            "layers": layers}
 
 
 def decode_state_logical(cfg: ModelConfig):
     """Logical axes for the decode state (for the checkpoint manifest)."""
     _require_ported(cfg)
     kv = (None, "batch", "cache_time", "kv_heads", None)
-    return {"pos": (), "layers": {"k": kv, "v": kv}}
+    lay = {"k": kv, "v": kv}
+    if cfg.ssm_state:
+        lay["ssm"] = (None, "batch", "heads", None, None)
+        lay["conv"] = (None, "batch", None, "d_inner")
+    return {"pos": (), "layers": lay}
 
 
 def _decode_mixer_block(cfg, rc, rules, p, x, lcache, pos: int):
-    """One block, one token.  Writes the token's K/V into `lcache` (this
-    layer's slices of the step's own copy of the caches) in place."""
+    """One block, one token.  Writes the token's K/V, and a hybrid
+    block's new SSM state and conv tail, into `lcache` (this layer's
+    slices of the step's own copy of the caches) in place."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
@@ -271,7 +303,14 @@ def _decode_mixer_block(cfg, rc, rules, p, x, lcache, pos: int):
     o = attn.decode_attention(q, lcache["k"], lcache["v"], pos,
                               cfg.sliding_window)
     o = o * attn.head_mask(cfg, o.device)[None, None, :, None].to(o.dtype)
-    x = x + attn.out_proj(p["attn"], o)
+    a_out = attn.out_proj(p["attn"], o)
+    if cfg.ssm_state:
+        m_out, conv, ssm = mam.mamba_decode_step(
+            p["mamba"], h, lcache["conv"], lcache["ssm"])
+        lcache["conv"].copy_(conv)
+        lcache["ssm"].copy_(ssm)
+        a_out = (a_out + m_out) * 0.5
+    x = x + a_out
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, _ = _ffn(cfg, rules, p, h2)
     return x + y
@@ -294,7 +333,7 @@ def decode_step(params, cfg: ModelConfig, rc: RunConfig, rules, state, token):
     dtype = getattr(torch, rc.dtype)
     x = L.embed_apply(params["embed"], token, dtype)
     pos = int(state["pos"])              # the step's one host copy of pos
-    caches = {key: state["layers"][key].clone() for key in ("k", "v")}
+    caches = {key: c.clone() for key, c in state["layers"].items()}
     for i in range(cfg.n_layers):
         x = _decode_mixer_block(cfg, rc, rules,
                                 _layer_params(params["blocks"], i), x,
@@ -321,8 +360,10 @@ def prefill(params, cfg: ModelConfig, rc: RunConfig, rules, batch):
     logits = _logits(params, cfg, x[:, -1])
     if not cfg.sliding_window:
         # full-attention KV caches need headroom for subsequent decodes
-        # (the time axis is ndim-3 of (L, B, T, K, hd))
-        layers = {key: torch.nn.functional.pad(
-            c, (0, 0, 0, 0, 0, rc.decode_margin)) for key, c in layers.items()}
+        # (the time axis is ndim-3 of (L, B, T, K, hd)); the SSM state
+        # and conv tail are fixed-size
+        for key in ("k", "v"):
+            layers[key] = torch.nn.functional.pad(
+                layers[key], (0, 0, 0, 0, 0, rc.decode_margin))
     pos = torch.tensor(S, dtype=torch.int32, device=x.device)
     return logits, {"pos": pos, "layers": layers}

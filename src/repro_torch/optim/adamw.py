@@ -6,7 +6,12 @@ trees mirroring params (f32) and `count` an int32 0-d tensor.  The
 update is functional: `apply_updates` returns new tensors and never
 writes into params, moments or count, so a snapshot that the checkpoint
 writer took at a safe point keeps that step's bytes while training runs
-on.
+on.  Gradients given as a flat list (in `tree_leaves` order, as
+`torch.autograd.grad` returns them) are the one exception: each entry
+is set to None once its update is made, so that, where the caller holds
+no other reference, the gradients' memory is released while the new
+state is built (old and new state, 24 bytes a param, are then the
+update's peak, not 28).  A gradient tree is left as it was given.
 """
 from __future__ import annotations
 
@@ -37,7 +42,10 @@ def lr_schedule(step, base_lr: float, warmup: int = 100,
 
 
 def global_norm(tree):
-    leaves = tree_leaves(tree)
+    return _norm(tree_leaves(tree))
+
+
+def _norm(leaves):
     return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
                           for l in leaves))
 
@@ -45,8 +53,9 @@ def global_norm(tree):
 @torch.no_grad()
 def apply_updates(params, grads, opt_state, *, lr, beta1=0.9, beta2=0.95,
                   eps=1e-8, weight_decay=0.1, grad_clip=1.0):
+    flat_g = grads if isinstance(grads, list) else tree_leaves(grads)
     count = opt_state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = _norm(flat_g)
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     c1 = 1.0 - beta1 ** count.to(torch.float32)
     c2 = 1.0 - beta2 ** count.to(torch.float32)
@@ -61,10 +70,13 @@ def apply_updates(params, grads, opt_state, *, lr, beta1=0.9, beta2=0.95,
         return (p - lr * step).to(p.dtype), m, v
 
     flat_p = tree_leaves(params)
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
-        flat_p, tree_leaves(grads), tree_leaves(opt_state["m"]),
-        tree_leaves(opt_state["v"]))]
+    out = []
+    for i, (p, m, v) in enumerate(zip(flat_p, tree_leaves(opt_state["m"]),
+                                      tree_leaves(opt_state["v"]))):
+        g, flat_g[i] = flat_g[i], None
+        out.append(upd(p, g, m, v))
     new_p = tree_unflatten(params, [o[0] for o in out])
     new_m = tree_unflatten(params, [o[1] for o in out])
     new_v = tree_unflatten(params, [o[2] for o in out])
     return new_p, {"m": new_m, "v": new_v, "count": count}, gnorm
+

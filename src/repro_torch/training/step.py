@@ -42,10 +42,12 @@ def make_train_step(cfg: ModelConfig, rc: RunConfig, rules=None):
         with torch.enable_grad():
             loss, metrics = T.forward_loss(tree_unflatten(params, leaves),
                                            cfg, rc, rules, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            # held only by this list, which the update consumes entry by
+            # entry (the gradients' memory is released as it goes)
+            grads = list(torch.autograd.grad(loss, leaves))
         lr = adamw.lr_schedule(step, rc.lr)
         new_params, new_opt, gnorm = adamw.apply_updates(
-            params, tree_unflatten(params, grads), opt, lr=lr,
+            params, grads, opt, lr=lr,
             beta1=rc.beta1, beta2=rc.beta2, weight_decay=rc.weight_decay,
             grad_clip=rc.grad_clip)
         out_metrics = {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr,

@@ -3,7 +3,9 @@ kernel bit for bit against its plain PyTorch version, launch counting,
 a bit-identical resume through MANARuntime, and serving with live
 decode-state images (bit-identical continuation after a delta-chain
 restore, the SWA ring wrap, MoE capacity drops, the checksum and XOR
-launches of a decode-state image), and the wire codec and worlds with
+launches of a decode-state image, reduced hymba with a padded KV head:
+a train step and a decode step against the CPU and its decode-state
+image), and the wire codec and worlds with
 rank state on the card (`SnapshotCodec` blobs from CUDA tensors equal
 those from CPU tensors, `decode_chain(device="cuda")` equals the host
 decode, a 2-rank socket world of card shards commits and restores).
@@ -370,6 +372,66 @@ def test_decode_state_image_launches_kernels(dev, tmp_path):
     for key in ("k", "v"):
         assert torch.equal(got["decode"]["layers"][key], st2["layers"][key])
     assert int(got["decode"]["pos"]) == 65
+
+
+def test_hybrid_padded_train_step_and_decode_image_on_card(dev, tmp_path):
+    """Reduced hymba-1.5b with the full-width config's head padding (25
+    heads over 5 KV heads, stored as 48 over 6): a train step's loss and
+    every gradient on the card agree with the CPU (float32); prefill and
+    a decode step on the card agree with the CPU, SSM state and conv tail
+    included; a decode-state image digests its 5 leaves (checksum), a
+    delta image XORs its 4 cache leaves and the 0-d pos, and the restore
+    gives the live state back bit for bit."""
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.training.step import make_serve_steps
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = reduced_config(ARCHS["hymba-1.5b"], n_heads=25, n_kv_heads=5,
+                         head_dim=8, pad_to=16)
+    assert (cfg.n_heads_padded, cfg.n_kv_heads_padded) == (48, 6)
+    rc = RunConfig(model=cfg, shape=ShapeConfig("s", 64, 2, "train"),
+                   loss_chunk=32, attn_chunk=16, dtype="float32")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(7)
+    params, _ = T.init_params(cfg, gen, "cpu")
+    batch = SyntheticDataset(cfg, rc.shape, seed=7).get_batch(0)
+
+    def loss_and_grads(device):
+        leaves = [p.to(device).requires_grad_(True)
+                  for p in tree_leaves(params)]
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        loss, _ = T.forward_loss(tree_unflatten(params, leaves), cfg, rc,
+                                 None, b)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    lg, gg = loss_and_grads(dev)
+    lc, gc = loss_and_grads("cpu")
+    _f32_close(lg, lc)
+    for a, b in zip(gg, gc):
+        _f32_close(a, b)
+
+    prefill, serve = make_serve_steps(cfg, rc)
+    toks = torch.from_numpy(batch["tokens"])
+    card = tree_map(lambda t: t.to(dev), params)
+    _, sc = prefill(params, {"tokens": toks})
+    _, sg = prefill(card, {"tokens": toks.to(dev)})
+    mgr = CheckpointManager(str(tmp_path), delta_keys=("decode",), device=dev)
+    c0, x0 = cops.launches, dops.launches
+    mgr.save(1, {"decode": sg}, {"decode": T.decode_state_logical(cfg)})
+    lc, sc = serve(params, sc, toks[:, :1])
+    lg, sg = serve(card, sg, toks[:, :1].to(dev))
+    _f32_close(lg, lc)
+    assert sorted(sg["layers"]) == ["conv", "k", "ssm", "v"]
+    for key in sg["layers"]:
+        _f32_close(sg["layers"][key], sc["layers"][key])
+    mgr.save(2, {"decode": sg}, {"decode": T.decode_state_logical(cfg)})
+    assert cops.launches == c0 + 15 and dops.launches == x0 + 5
+    got, _ = mgr.restore(2)
+    for key in sg["layers"]:
+        assert torch.equal(got["decode"]["layers"][key], sg["layers"][key])
+    assert got["decode"]["layers"]["k"].device.type == "cuda"
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's entry points on the CPU: the training CLI
 (`python -m repro_torch.launch.train`), the quickstart and preemption
 twins, and the runtime's process-wide footprint (the SIGUSR1 handler,
-the deterministic-algorithms switch).  Reduced qwen2-0.5b, B 2 x S 64,
+the deterministic-algorithms switch).  Reduced qwen2-0.5b, and reduced
+hymba-1.5b for a fresh / resumed / uninterrupted CLI run, B 2 x S 64,
 `--device cpu`; the CLI and the quickstart run in subprocesses, the
 independent ones side by side, shared through a module-scoped fixture.
 
@@ -38,6 +39,7 @@ FLAGS = ["--arch", "qwen2-0.5b", "--reduced", "--batch", "2", "--seq", "64",
          "--ckpt-every-steps", "2", "--delta-params"]
 PORT = [sys.executable, "-m", "repro_torch.launch.train", *FLAGS,
         "--device", "cpu"]
+HYBRID = [*PORT[:4], "hymba-1.5b", *PORT[5:]]
 REFERENCE = [sys.executable, "-m", "repro.launch.train", *FLAGS]
 ENV = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
 
@@ -79,6 +81,8 @@ def runs(tmp_path_factory):
         "quickstart": _start([sys.executable, "-m",
                               "repro_torch.examples.quickstart", "--device",
                               "cpu", "--ckpt-dir", str(d / "q")]),
+        "hybrid_fresh": _start(HYBRID + ["--steps", "4"], d / "h"),
+        "hybrid6": _start(HYBRID + ["--steps", "6"], d / "h6"),
     }
     out = {k: _finish(p) for k, p in first.items()}
     second = {
@@ -90,6 +94,8 @@ def runs(tmp_path_factory):
         "socket_int8_resume": _start(
             PORT + ["--steps", "2", "--resume", "--transport", "socket",
                     "--quantize-moments"], d / "s"),
+        "hybrid_resume": _start(HYBRID + ["--steps", "2", "--resume"],
+                                d / "h"),
     }
     out.update({k: _finish(p) for k, p in second.items()})
     out["dir"] = d
@@ -108,6 +114,24 @@ def test_cli_resume_repeats_the_uninterrupted_run(runs):
     assert runs["fresh"][0][0] == "initialized fresh"
     assert runs["fresh"][0][-1] == "checkpoints taken: 2; dir: [2, 4]"
     assert lines[-1] == "checkpoints taken: 1; dir: [2, 4, 6]"
+
+
+def test_cli_hybrid_resume_repeats_the_uninterrupted_run(runs):
+    """`--arch hymba-1.5b --reduced`: 4 steps fresh, `--resume` for 2;
+    the resumed losses equal the uninterrupted run's steps 4-5, and the
+    images hold the SSM leaves as XOR deltas."""
+    lines, resumed = runs["hybrid_resume"]
+    assert HYBRID[3:5] == ["--arch", "hymba-1.5b"]
+    assert runs["hybrid_fresh"][0][0] == "initialized fresh"
+    assert lines[0] == "resumed from step 4"
+    assert [h["step"] for h in resumed] == [4, 5]
+    assert _losses(resumed) == _losses(runs["hybrid6"][1])
+    assert all(math.isfinite(h["loss"]) for h in runs["hybrid6"][1])
+    with open(os.path.join(runs["dir"], "h", "ckpt_0000000004",
+                           "manifest.json")) as f:
+        arrays = json.load(f)["arrays"]
+    assert arrays["params/blocks/mamba/A_log"]["base_step"] == 2
+    assert arrays["opt/v/blocks/mamba/conv_w"]["dtype"] == "float32"
 
 
 def test_cli_socket_transport_and_int8_moments_resume(runs):

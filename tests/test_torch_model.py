@@ -1,8 +1,10 @@
-"""The port's dense model (layers, GQA flash attention, loss, gradients)
-against the JAX package at reduced qwen2-0.5b, unpadded and with
-`pad_to=16` (padded heads masked).  Both packages get the same inputs
-and the same parameters: the JAX init, carried over with
-`repro_torch.convert.state_from_numpy`.
+"""The port's dense and hybrid-SSM models (layers, GQA flash attention,
+loss, gradients) against the JAX package at reduced qwen2-0.5b and
+reduced hymba-1.5b, each unpadded and with `pad_to=16` (padded heads
+masked; hymba padded as 25 heads over 5 KV heads, stored as 48 over 6,
+the padding of the full-width config, so a dummy KV group runs).  Both
+packages get the same inputs and the same parameters: the JAX init,
+carried over with `repro_torch.convert.state_from_numpy`.
 
 Tolerances:
   * float32 compute (`RunConfig(dtype="float32")`): rtol 1e-4, with an
@@ -73,19 +75,36 @@ def _tnp(x):
     return x.detach().to(torch.float32).numpy()
 
 
-@pytest.fixture(scope="module", params=[1, 16], ids=["unpadded", "pad16"])
+# reduced hymba with the full-width config's head padding: 25 heads over
+# 5 KV heads pad to 48 over 6 (K_pad > K)
+HYMBA_PAD = dict(n_heads=25, n_kv_heads=5, head_dim=8, pad_to=16)
+
+
+@pytest.fixture(scope="module", params=[
+    ("qwen2-0.5b", dict(pad_to=1)), ("qwen2-0.5b", dict(pad_to=16)),
+    ("hymba-1.5b", {}), ("hymba-1.5b", HYMBA_PAD)],
+    ids=["unpadded", "pad16", "hymba", "hymba-pad16"])
 def model(request):
-    """(jax cfg, port cfg, numpy params) for reduced qwen2-0.5b."""
-    jcfg = jreduced(JARCHS["qwen2-0.5b"], pad_to=request.param)
-    cfg = reduced_config(ARCHS["qwen2-0.5b"], pad_to=request.param)
+    """(jax cfg, port cfg, numpy params) for reduced qwen2-0.5b or
+    hymba-1.5b."""
+    arch, overrides = request.param
+    jcfg = jreduced(JARCHS[arch], **overrides)
+    cfg = reduced_config(ARCHS[arch], **overrides)
     params, _ = jT.init_params(jcfg, jax.random.PRNGKey(3))
-    # nonzero biases so the bias path is exercised
     rng = np.random.RandomState(4)
     params = jax.tree.map(lambda x: np.asarray(x), params)
+    # nonzero biases and SSM constants so their paths are exercised
+    blocks = params["blocks"]
     for k in ("bq", "bk", "bv"):
-        params["blocks"]["attn"][k] = (
-            rng.randn(*params["blocks"]["attn"][k].shape) * 0.1
-        ).astype(np.float32)
+        if k in blocks["attn"]:
+            blocks["attn"][k] = (rng.randn(*blocks["attn"][k].shape) * 0.1
+                                 ).astype(np.float32)
+    for k in ("conv_b", "dt_bias", "A_log", "D"):
+        if "mamba" in blocks:
+            blocks["mamba"][k] = (blocks["mamba"][k] + rng.randn(
+                *blocks["mamba"][k].shape) * 0.1).astype(np.float32)
+    if arch == "hymba-1.5b" and overrides:
+        assert (cfg.n_heads_padded, cfg.n_kv_heads_padded) == (48, 6)
     return jcfg, cfg, params
 
 

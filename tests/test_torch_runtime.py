@@ -1,7 +1,11 @@
 """The port's MANARuntime end to end on the CPU (the cases of
 tests/test_runtime_resume.py), and checkpoint images carried across
 packages: a JAX image restores in the port and a port image restores
-in the JAX `CheckpointManager`, with delta params and int8 moments on.
+in the JAX `CheckpointManager`, with delta params and int8 moments on;
+training images of reduced qwen2-0.5b and hymba-1.5b (its SSM leaves:
+(L, 16) f32 constants, the conv weights), and decode-state images of
+reduced Mixtral and hymba (bf16 caches, hymba's f32 SSM state and bf16
+conv tail, the 0-d int32 pos).
 
 Tolerance: none for images — restored params, steps, digests and chunk
 bytes are compared exactly.  The one cross-package resume compares
@@ -189,8 +193,8 @@ def test_corrupt_chunk_is_refused(tmp_path):
 # images across packages
 # ---------------------------------------------------------------------------
 
-def _jax_run(d, steps=4, **kw):
-    jcfg = jreduced(JARCHS["qwen2-0.5b"])
+def _jax_run(d, steps=4, arch="qwen2-0.5b", **kw):
+    jcfg = jreduced(JARCHS[arch])
     jrt = JMANARuntime(jcfg, _jrc(jcfg, **kw), ckpt_dir=str(d),
                        ckpt_every_steps=2, delta_params=True,
                        quantize_moments=True)
@@ -206,7 +210,16 @@ def test_jax_image_restores_in_port(tmp_path):
     restores in the port: digests verified, params and step exact, the
     moments exactly what the JAX manager decodes; the port then resumes
     within float32 tolerance of the JAX run."""
-    hist, live = _jax_run(tmp_path, steps=6, dtype="float32")
+    _check_jax_image_restores_in_port(tmp_path, "qwen2-0.5b")
+
+
+def test_jax_hybrid_image_restores_in_port(tmp_path):
+    """The same for reduced hymba-1.5b."""
+    _check_jax_image_restores_in_port(tmp_path, "hymba-1.5b")
+
+
+def _check_jax_image_restores_in_port(tmp_path, arch):
+    hist, live = _jax_run(tmp_path, steps=6, arch=arch, dtype="float32")
     want, jextra = JCheckpointManager(str(tmp_path)).restore(4)
     mgr = CheckpointManager(str(tmp_path), device="cpu")
     got, extra = mgr.restore(4)
@@ -216,8 +229,10 @@ def test_jax_image_restores_in_port(tmp_path):
     for path, arr in want.items():
         assert got[path].dtype == arr.dtype and got[path].shape == arr.shape
         np.testing.assert_array_equal(got[path], arr, err_msg=path)
+    if arch == "hymba-1.5b":
+        assert "params/blocks/mamba/A_log" in got
 
-    cfg = reduced_config(ARCHS["qwen2-0.5b"])
+    cfg = reduced_config(ARCHS[arch])
     rt = _rt(cfg, _rc(cfg, dtype="float32"), tmp_path)
     assert rt.restore(4) == 4
     resumed = [h["loss"] for h in rt.run(2)]
@@ -230,7 +245,16 @@ def test_port_image_restores_in_jax(tmp_path):
     restores in the JAX CheckpointManager with verify=True: params and
     step equal the port's live state, every array equals the port's own
     restore, and every manifest digest is checksum_np of its file."""
-    cfg = reduced_config(ARCHS["qwen2-0.5b"])
+    _check_port_image_restores_in_jax(tmp_path, "qwen2-0.5b")
+
+
+def test_port_hybrid_image_restores_in_jax(tmp_path):
+    """The same for reduced hymba-1.5b."""
+    _check_port_image_restores_in_jax(tmp_path, "hymba-1.5b")
+
+
+def _check_port_image_restores_in_jax(tmp_path, arch):
+    cfg = reduced_config(ARCHS[arch])
     rt = _rt(cfg, _rc(cfg), tmp_path, ckpt_every_steps=2, delta_params=True,
              quantize_moments=True)
     rt.initialize()
@@ -244,7 +268,7 @@ def test_port_image_restores_in_jax(tmp_path):
         np.testing.assert_array_equal(arr, ours[path], err_msg=path)
         if not path.startswith("opt/m/") and not path.startswith("opt/v/"):
             np.testing.assert_array_equal(arr, live[path], err_msg=path)
-    assert extra["run_meta"]["arch"] == "qwen2-0.5b"
+    assert extra["run_meta"]["arch"] == arch
     with open(os.path.join(rt.ckpt.step_dir(4), "manifest.json")) as f:
         man = json.load(f)
     assert man["arrays"]["params/ln_f"]["base_step"] == 2
@@ -293,15 +317,16 @@ def test_same_state_writes_identical_images(tmp_path):
 # decode-state images across packages (bf16 caches, 0-d int32 pos)
 # ---------------------------------------------------------------------------
 
-def _jax_decode_states(n=2):
-    """Reduced Mixtral (MoE + SWA): the JAX package's decode states after
-    prefill + 1 and prefill + 2 decode steps, and its numpy params."""
+def _jax_decode_states(n=2, arch="mixtral-8x7b"):
+    """Reduced Mixtral (MoE + SWA) or hymba (hybrid SSM + SWA): the JAX
+    package's decode states after prefill + 1 and prefill + 2 decode
+    steps, and its numpy params."""
     import jax.numpy as jnp
 
     from repro.models import transformer as jT
     from repro.training.step import make_serve_steps as jmake
 
-    jcfg = jreduced(JARCHS["mixtral-8x7b"])
+    jcfg = jreduced(JARCHS[arch])
     jrc = JRunConfig(model=jcfg, shape=JShape("s", 64, 2, "prefill"),
                      loss_chunk=32, attn_chunk=16)
     params, _ = jT.init_params(jcfg, jax.random.PRNGKey(0))
@@ -323,13 +348,16 @@ def _bits(a):
 
 
 def _assert_same_decode_state(got, want):
-    """got: the port's tensors; want: numpy (bf16 as ml_dtypes)."""
+    """got: the port's tensors; want: numpy (bf16 as ml_dtypes).  Every
+    cache leaf is bf16 but hymba's SSM state, f32."""
     ours = state_to_numpy(got)
     assert ours["pos"].shape == () and ours["pos"].dtype == np.int32
     assert int(ours["pos"]) == int(want["pos"])
-    for key in ("k", "v"):
-        assert got["layers"][key].dtype.__str__() == "torch.bfloat16"
-        assert np.asarray(want["layers"][key]).dtype.name == "bfloat16"
+    assert sorted(got["layers"]) == sorted(want["layers"])
+    for key in got["layers"]:
+        dt = "float32" if key == "ssm" else "bfloat16"
+        assert got["layers"][key].dtype.__str__() == f"torch.{dt}"
+        assert np.asarray(want["layers"][key]).dtype.name == dt
         np.testing.assert_array_equal(ours["layers"][key],
                                       _bits(want["layers"][key]))
 
@@ -337,7 +365,16 @@ def _assert_same_decode_state(got, want):
 def test_jax_decode_image_restores_in_port(tmp_path):
     """JAX images of a decode state (full, then an XOR delta on it)
     restore in the port bit for bit: bf16 caches and the 0-d pos."""
-    logical, states, _ = _jax_decode_states()
+    _check_jax_decode_image_restores_in_port(tmp_path, "mixtral-8x7b")
+
+
+def test_jax_hybrid_decode_image_restores_in_port(tmp_path):
+    """The same for reduced hymba: its SSM state and conv tail too."""
+    _check_jax_decode_image_restores_in_port(tmp_path, "hymba-1.5b")
+
+
+def _check_jax_decode_image_restores_in_port(tmp_path, arch):
+    logical, states, _ = _jax_decode_states(arch=arch)
     jmgr = JCheckpointManager(str(tmp_path), delta_keys=("decode",))
     for step, st in enumerate(states, 1):
         jmgr.save(step, {"decode": st}, {"decode": logical})
@@ -356,14 +393,24 @@ def test_port_decode_image_restores_in_jax(tmp_path):
     """The port's images of its own decode state (same params and
     tokens) restore in the JAX manager with verify=True bit for bit, and
     the JAX package decodes on from the restored state."""
+    _check_port_decode_image_restores_in_jax(tmp_path, "mixtral-8x7b")
+
+
+def test_port_hybrid_decode_image_restores_in_jax(tmp_path):
+    """The same for reduced hymba: its SSM state and conv tail too."""
+    _check_port_decode_image_restores_in_jax(tmp_path, "hymba-1.5b")
+
+
+def _check_port_decode_image_restores_in_jax(tmp_path, arch):
     import jax.numpy as jnp
 
     from repro.models import transformer as jT
     from repro_torch.models.transformer import decode_state_logical
     from repro_torch.training.step import make_serve_steps
 
-    logical, _, params = _jax_decode_states(n=0)
-    cfg = reduced_config(ARCHS["mixtral-8x7b"])
+    logical, _, params = _jax_decode_states(n=0, arch=arch)
+    assert decode_state_logical(reduced_config(ARCHS[arch])) == logical
+    cfg = reduced_config(ARCHS[arch])
     rc = RunConfig(model=cfg, shape=ShapeConfig("s", 64, 2, "prefill"),
                    loss_chunk=32, attn_chunk=16)
     prefill, serve = make_serve_steps(cfg, rc)
@@ -384,7 +431,7 @@ def test_port_decode_image_restores_in_jax(tmp_path):
     for step, st in enumerate(states, 1):
         theirs, _ = jmgr.restore(step)
         _assert_same_decode_state(st, theirs["decode"])
-    jcfg = jreduced(JARCHS["mixtral-8x7b"])
+    jcfg = jreduced(JARCHS[arch])
     jrc = JRunConfig(model=jcfg, shape=JShape("s", 64, 2, "prefill"),
                      loss_chunk=32, attn_chunk=16)
     dec = jax.tree.map(jnp.asarray, theirs["decode"])
@@ -400,7 +447,17 @@ def test_same_decode_state_writes_identical_images(tmp_path):
     """One decode state, written by both managers with XOR-delta decode
     images: identical manifests (but for the timestamp) and identical
     chunk files, at the full and at the delta step."""
-    logical, states, _ = _jax_decode_states()
+    _check_same_decode_state_writes_identical_images(tmp_path, "mixtral-8x7b")
+
+
+def test_same_hybrid_decode_state_writes_identical_images(tmp_path):
+    """The same for reduced hymba: `state_from_numpy` carries its f32 SSM
+    state and bf16 conv tail as they are."""
+    _check_same_decode_state_writes_identical_images(tmp_path, "hymba-1.5b")
+
+
+def _check_same_decode_state_writes_identical_images(tmp_path, arch):
+    logical, states, _ = _jax_decode_states(arch=arch)
     jmgr = JCheckpointManager(str(tmp_path / "jax"), delta_keys=("decode",))
     mgr = CheckpointManager(str(tmp_path / "port"), delta_keys=("decode",),
                             device="cpu")

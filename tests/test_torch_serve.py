@@ -1,9 +1,12 @@
 """The port's serving path against the JAX package: decode and
 sliding-window attention, the KV-cache write, the MoE layer, prefill and
-teacher-forced decode of reduced qwen2-0.5b (dense, full attention) and
-reduced Mixtral (MoE + SWA, the ring cache wraps), the decode-vs-prefill
-continuation, the port's own live-image restore continuation, and the
-CPU run of the `serve_with_snapshot` example twin.  Both packages get
+teacher-forced decode of reduced qwen2-0.5b (dense, full attention),
+reduced Mixtral (MoE + SWA, the ring cache wraps) and reduced hymba-1.5b
+(hybrid SSM + SWA: the decode state adds an f32 SSM state and a conv
+tail; "hymba-pad16" pads 25 heads over 5 KV heads to 48 over 6, as the
+full-width config does), the decode-vs-prefill continuation, the port's
+own live-image restore continuation, and the CPU run of the
+`serve_with_snapshot` example twin.  Both packages get
 the same numpy-made inputs; model parameters are the JAX init carried
 over with `repro_torch.convert.state_from_numpy`.
 
@@ -234,11 +237,22 @@ def test_topk_by_argmax_matches_reference():
 # ---------------------------------------------------------------------------
 
 SEQ, BATCH, DECODES = 64, 2, 4
+# arch ids of the cases -> (config, reduced_config overrides)
+# ("hymba-full": full attention, so prefill pads only the K/V caches
+# with the decode margin, not the SSM state or conv tail; it runs in
+# float32, where the pad's effect is held to rounding: in bfloat16 this
+# case's decode logits drift from float32 in either package far more
+# than the two packages differ, and the file's bfloat16 tolerance sits
+# within that rounding noise)
+VARIANTS = {"hymba-pad16": ("hymba-1.5b", dict(n_heads=25, n_kv_heads=5,
+                                               head_dim=8, pad_to=16)),
+            "hymba-full": ("hymba-1.5b", dict(sliding_window=0))}
 
 
 def _model(arch, dtype):
-    jcfg = jreduced(JARCHS[arch])
-    cfg = reduced_config(ARCHS[arch])
+    arch, overrides = VARIANTS.get(arch, (arch, {}))
+    jcfg = jreduced(JARCHS[arch], **overrides)
+    cfg = reduced_config(ARCHS[arch], **overrides)
     params, _ = jT.init_params(jcfg, jax.random.PRNGKey(0))
     params = jax.tree.map(np.asarray, params)
     kw = dict(loss_chunk=32, attn_chunk=16, dtype=dtype)
@@ -249,8 +263,10 @@ def _model(arch, dtype):
     return jcfg, cfg, jrc, rc, params
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch,dtype", [
+    (arch, dtype)
+    for arch in ("qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b", "hymba-pad16")
+    for dtype in ("float32", "bfloat16")] + [("hymba-full", "float32")])
 def test_prefill_and_decode_match_reference(arch, dtype):
     jcfg, cfg, jrc, rc, params = _model(arch, dtype)
     toks = np.random.RandomState(1).randint(
@@ -266,9 +282,10 @@ def test_prefill_and_decode_match_reference(arch, dtype):
     for i in range(DECODES):
         assert int(ts["pos"]) == int(js["pos"]) == SEQ + i
         assert ts["pos"].dtype == torch.int32 and ts["pos"].dim() == 0
-        for key in ("k", "v"):
-            assert ts["layers"][key].dtype == getattr(torch, dtype)
-            _close(_np(ts["layers"][key]), _np(js["layers"][key]), dtype)
+        assert sorted(ts["layers"]) == sorted(js["layers"])
+        for key, c in ts["layers"].items():
+            assert str(c.dtype) == f"torch.{js['layers'][key].dtype}"
+            _close(_np(c), _np(js["layers"][key]), dtype)
         tok = toks[:, SEQ + i:SEQ + i + 1]        # teacher forcing
         jl, js = jserve(jparams, js, jnp.asarray(tok))
         tl, ts = serve(tparams, ts, torch.from_numpy(tok))
@@ -280,22 +297,24 @@ def test_prefill_and_decode_match_reference(arch, dtype):
 
 
 def test_decode_state_layout_matches_reference():
-    for arch in ("qwen2-0.5b", "mixtral-8x7b"):
+    for arch in ("qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b", "hymba-pad16"):
         jcfg, cfg, jrc, rc, _ = _model(arch, "bfloat16")
         shape = ShapeConfig("d", 48, 3, "decode")
         ours = T.init_decode_state(cfg, shape, rc, device="cpu")
         theirs = jT.init_decode_state(jcfg, JShape("d", 48, 3, "decode"), jrc)
         assert ours["pos"].shape == () and ours["pos"].dtype == torch.int32
-        for key in ("k", "v"):
-            assert tuple(ours["layers"][key].shape) == \
-                theirs["layers"][key].shape
-            assert str(ours["layers"][key].dtype) == "torch.bfloat16"
+        assert sorted(ours["layers"]) == sorted(theirs["layers"])
+        for key, c in ours["layers"].items():
+            assert tuple(c.shape) == theirs["layers"][key].shape
+            assert str(c.dtype) == f"torch.{theirs['layers'][key].dtype}"
+            assert not c.any()
         assert T.decode_state_logical(cfg) == jT.decode_state_logical(jcfg)
         assert T._kv_capacity(cfg, 48) == jT._kv_capacity(jcfg, 48)
         assert T.moe_split(cfg) == jT.moe_split(jcfg)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b",
+                                  "hymba-pad16"])
 def test_decode_matches_prefill_continuation(arch):
     """Decode after a prefill of P tokens agrees with the last position
     of a forward over P + 1 tokens (tests/test_archs_smoke.py's check;
@@ -316,8 +335,7 @@ def test_decode_matches_prefill_continuation(arch):
 
 
 def test_unported_families_raise():
-    for arch in ("hymba-1.5b", "rwkv6-3b", "whisper-large-v3",
-                 "llama-3.2-vision-11b"):
+    for arch in ("rwkv6-3b", "whisper-large-v3", "llama-3.2-vision-11b"):
         cfg = reduced_config(ARCHS[arch])
         with pytest.raises(NotImplementedError, match="not ported"):
             T.init_params(cfg, None, "meta")
@@ -328,7 +346,16 @@ def test_unported_families_raise():
 # ---------------------------------------------------------------------------
 
 def test_decode_step_leaves_its_state_unchanged():
-    _, cfg, _, rc, params = _model("mixtral-8x7b", "bfloat16")
+    _check_decode_step_leaves_its_state("mixtral-8x7b")
+
+
+def test_hybrid_decode_step_leaves_its_state_unchanged():
+    """The same for hymba: the SSM state and conv tail too."""
+    _check_decode_step_leaves_its_state("hymba-1.5b")
+
+
+def _check_decode_step_leaves_its_state(arch):
+    _, cfg, _, rc, params = _model(arch, "bfloat16")
     tparams = state_from_numpy(params, "cpu")
     prefill, serve = make_serve_steps(cfg, rc)
     toks = torch.from_numpy(np.random.RandomState(2).randint(
@@ -337,7 +364,9 @@ def test_decode_step_leaves_its_state_unchanged():
     before = state_to_numpy(st)
     _, st2 = serve(tparams, st, toks[:, :1])
     after = state_to_numpy(st)
-    for key in ("k", "v"):
+    assert sorted(after["layers"]) == sorted(
+        ("k", "v", "ssm", "conv") if cfg.ssm_state else ("k", "v"))
+    for key in after["layers"]:
         np.testing.assert_array_equal(after["layers"][key],
                                       before["layers"][key])
         assert not np.array_equal(state_to_numpy(st2)["layers"][key],
@@ -345,7 +374,7 @@ def test_decode_step_leaves_its_state_unchanged():
     assert int(st["pos"]) == SEQ and int(st2["pos"]) == SEQ + 1
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b"])
 def test_snapshot_restore_continuation_is_bitwise(arch, tmp_path):
     """A full image at token 6 and an XOR-delta image at token 10; a fresh
     manager restores 10 through the chain, and tokens 11-15 with their

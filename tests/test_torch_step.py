@@ -1,5 +1,5 @@
 """One train step of the port against the JAX package from the same
-state (reduced qwen2-0.5b and reduced Mixtral, float32 compute): params,
+state (reduced qwen2-0.5b, Mixtral and hymba, float32 compute): params,
 AdamW moments, lr and grad norm agree; step and opt/count are exact
 int32.
 
@@ -60,6 +60,38 @@ def test_moe_train_step_matches_reference():
     sliding-window path, the expert dispatch and the aux loss are in the
     step."""
     _step_parity("mixtral-8x7b", 64, norm_rtol=1e-4)
+
+
+def test_hybrid_train_step_matches_reference():
+    """Reduced hymba: 64 tokens over a window of 32 (the sliding-window
+    path) beside the SSM heads, whose (L, 16) constants `A_log`, `D` and
+    `dt_bias` get AdamW updates too."""
+    _step_parity("hymba-1.5b", 64, norm_rtol=1e-4)
+
+
+def test_apply_updates_releases_each_gradient():
+    """Gradients given as a flat list (as the train step gives them) are
+    consumed: every gradient held only there is released by the time the
+    update returns.  A gradient tree is left as it was.  Both give the
+    same result."""
+    import weakref
+
+    gen = torch.Generator().manual_seed(3)
+    params = {"a": torch.randn(4, 5, generator=gen),
+              "b": {"c": torch.randn(7, generator=gen)}}
+    grads = [torch.randn(4, 5, generator=gen), torch.randn(7, generator=gen)]
+    kept = {"a": grads[0].clone(), "b": {"c": grads[1].clone()}}
+    refs = [weakref.ref(g) for g in grads]
+    opt = adamw.init_opt_state(params)
+    lr = torch.tensor(1e-2)
+    got = adamw.apply_updates(params, grads, opt, lr=lr)
+    want = adamw.apply_updates(params, kept, opt, lr=lr)
+    assert grads == [None, None]
+    assert all(r() is None for r in refs)
+    assert set(kept) == {"a", "b"} and set(kept["b"]) == {"c"}
+    for a, b in zip(_leaves_t({"p": got[0], "o": got[1]}),
+                    _leaves_t({"p": want[0], "o": want[1]})):
+        assert a[0] == b[0] and torch.equal(a[1], b[1])
 
 
 def _step_parity(arch, seq, norm_rtol):
