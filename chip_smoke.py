@@ -26,11 +26,13 @@ each fatal on failure:
      (c) a pass over all 14 parameter leaves of qwen2-0.5b; XOR, quantize
      and dequantize also bit for bit against their plain versions at a
      full-width Mixtral-8x7B expert leaf, (16, 4096, 7168) f32
-     (1,879,048,192 bytes), the largest tensor the kernels see, and at
-     hymba-1.5b's largest leaf, (32, 1600, 5504) f32 (1,127,219,200
-     bytes), and at hymba's smallest, (32, 16) f32 (one padded
-     1024-value quantize row), with their times there; checksum also at
-     2 KiB, the smallest leaf's tail, short of one 8 KiB block;
+     (1,879,048,192 bytes), at hymba-1.5b's largest leaf, (32, 1600,
+     5504) f32 (1,127,219,200 bytes), at hymba's smallest, (32, 16) f32
+     (one padded 1024-value quantize row), and at rwkv6-3b's full-depth
+     largest leaf, (32, 2560, 8960) f32 (2,936,012,800 bytes, past 2^31:
+     where a 32-bit byte count or offset would show), with their times
+     there; checksum of each of these leaves equal to its plain version's
+     (and at 2 KiB, the smallest leaf's tail, short of one 8 KiB block);
   2. main path: full-width qwen2-0.5b through `MANARuntime` on cuda,
      6 steps with an image every 2 (XOR-delta params), then a fresh
      runtime restores step 4 (chain 4 -> 2) and its 2 steps must repeat
@@ -43,15 +45,16 @@ each fatal on failure:
      memory, and one JSON line of the kernels with their launches on the
      main path.  The counts are set to 0 just before each main-path
      phase (2, 3, the serve phases, the world phases, cli, quickstart,
-     preempt, train_moe and train_hybrid) and read just after it, adding
+     preempt, train_moe, train_hybrid and train_rwkv) and read just after
+     it, adding
      the counts that a world phase's spawned socket ranks report from
      their own processes; each phase must launch the kernels of its path
      (2, cli: checksum, XOR; 3: checksum, quantize, dequantize; serving:
      checksum, XOR; world_pipeline and world_cross: XOR; quickstart,
-     preempt: checksum; train_moe, train_hybrid: all four), and
+     preempt: checksum; train_moe, train_hybrid, train_rwkv: all four), and
      `launches` is their sum.  The peak device memory is reset before
      each phase and printed per phase, with each phase's wall time.
-  serve_dense, serve_moe, serve_hybrid: the serving path
+  serve_dense, serve_moe, serve_hybrid, serve_rwkv: the serving path
      (`make_serve_steps`) with live decode-state images.  qwen2-0.5b at
      full width and depth, 8 prompts of 2048 tokens; Mixtral-8x7B at full
      width cut to 4 of 32 layers, 4 prompts of 8192 tokens (twice the SWA
@@ -60,7 +63,11 @@ each fatal on failure:
      stored padded as 48 over 6; SSM heads beside SWA 1024), 8 prompts of
      2048 tokens (twice the window), uncut: its decode state adds an f32
      SSM state and a bf16 conv tail to the K/V ring (459,997,184 bytes in
-     all).  Each: prefill, 16
+     all); rwkv6-3b at full width and depth (32 layers, 40 time-mix heads
+     stored padded as 48, no attention), 8 prompts of 2048 tokens, uncut:
+     its decode state is an f32 `la` state and two bf16 token-shift
+     states (203,948,032 bytes), whatever the prompt's length.  Each:
+     prefill, 16
      greedy decode steps, an image of the decode state at token 6 (full)
      and at token 10 (XOR delta on 6); a fresh manager restores token 10
      through the chain onto the card (every leaf equal to the live
@@ -92,7 +99,8 @@ each fatal on failure:
      steps).  preempt: the preemption twin at its default 200 steps,
      which asserts its restarted losses equal the uninterrupted run's and
      prints PASS.  Step times by host clock.
-  train_moe, train_hybrid: full-width training through `MANARuntime`.
+  train_moe, train_hybrid, train_rwkv: full-width training through
+     `MANARuntime`.
      train_moe: Mixtral-8x7B at full width cut to 1 of 32 layers (1.71 B
      params, 8 experts top-2, SWA 4096), B 1 x S 8192 (twice the window:
      the SWA path; B 2 does not fit beside an image's snapshot, see
@@ -104,11 +112,14 @@ each fatal on failure:
      phase 3 checks qwen2-0.5b's.  Free disk under the phase's directory
      is checked before the images (it fails with the numbers), and each
      image directory is deleted when its check is done.  train_hybrid:
-     the same run for hymba-1.5b at full width and full depth (32
-     layers, 1,798,812,736 params with heads padded), B 4 x S 4096 (the
-     reference's train_4k sequence length, four times the SWA window;
-     cut in batch only, from train_4k's 256, see `HYBRID_BATCH`); its
-     losses must repeat bit for bit.  Each prints step seconds, image bytes,
+     the same run for hymba-1.5b at full width and depth (heads padded to
+     48 over 6), B 4 x S 4096 (see `TRAIN_4K_BATCH`; four times hymba's
+     SWA window, so the sliding-window path); its losses must repeat bit
+     for bit.  train_rwkv: the same run for rwkv6-3b at full width cut to
+     16 of 32 layers (1,809,787,392 params stored, heads padded 40 -> 48;
+     full depth's 3.28 B params would need 118 GB with an image in
+     flight, see `RWKV_LAYERS`), B 4 x S 4096 as train_hybrid.  Each
+     prints step seconds, image bytes,
      write and restore seconds, the peak device memory of its first two
      steps (before any image holds a snapshot copy of the state) and of
      the whole phase.
@@ -534,6 +545,7 @@ def phase_kernels(card: str):
     check_leaf(card, gen, EXPERT_LEAF, "expert leaf")
     check_leaf(card, gen, HYMBA_LEAF, "hymba leaf")
     check_leaf(card, gen, HYMBA_TINY_LEAF, "hymba tiny leaf")
+    check_leaf(card, gen, RWKV_LEAF, "rwkv leaf")
     return rows
 
 
@@ -544,18 +556,25 @@ EXPERT_LEAF = (16, 4096, 7168)
 # 5504): 1,127,219,200 bytes; and its smallest, the per-head SSM
 # constants `A_log`, `D`, `dt_bias` (32 layers x 16 heads: 2 KiB)
 HYMBA_LEAF, HYMBA_TINY_LEAF = (32, 1600, 5504), (32, 16)
+# rwkv6-3b's largest leaf at full depth, the channel mix's `wck` (32
+# layers x d_model 2560 x d_ff 8960; `wcv` is its transpose):
+# 2,936,012,800 bytes, the first tensor past 2^31 bytes
+RWKV_LEAF = (32, 2560, 8960)
 
 
 def check_leaf(card: str, gen, shape, what: str):
-    """XOR, quantize and dequantize bit for bit against their plain
-    versions at one leaf of `shape` f32, before a phase that relies on
-    them there: `EXPERT_LEAF`, the largest tensor the kernels see
-    (train_moe's params and moments), `HYMBA_LEAF` (train_hybrid's) and
-    `HYMBA_TINY_LEAF` (512 values: quantize pads them to one 1024-value
-    row); each kernel's device time there beside its bound."""
+    """Checksum, XOR, quantize and dequantize bit for bit against their
+    plain versions at one leaf of `shape` f32, before a phase that relies
+    on them there: `EXPERT_LEAF` (train_moe's params and moments),
+    `HYMBA_LEAF` (hymba-1.5b's at full depth), `HYMBA_TINY_LEAF` (512
+    values: quantize pads them to one 1024-value row) and `RWKV_LEAF`
+    (rwkv6-3b's at full depth, past 2^31 bytes, where train_rwkv's cut
+    depth stops short of it); each kernel's device time there beside its
+    bound."""
     import torch
 
     from repro_torch.kernels import _build, as_bytes
+    from repro_torch.kernels.checksum import ops as cops, ref as cref
     from repro_torch.kernels.delta import ops as dops, ref as dref
     from repro_torch.kernels.quantize import ops as qops, ref as qref
 
@@ -563,6 +582,19 @@ def check_leaf(card: str, gen, shape, what: str):
     stream = _build.stream_ptr(torch.empty(0, device=dev))
     x = torch.randn(shape, generator=gen, device=dev) * 1e-3
     n = x.numel()
+    k, p = cops.checksum(x), cref.checksum_torch(as_bytes(x))
+    if k != p:
+        raise AssertionError(f"checksum kernel {k} != plain {p} at {shape} "
+                             f"f32")
+    torch.cuda.empty_cache()
+    lib = _build.library("checksum")
+    sums = torch.empty((-(-4 * n // (4 * cref.BLOCK)), 2), dtype=torch.int32,
+                       device=dev)
+    out = torch.empty((1,), dtype=torch.int32, device=dev)
+    sum_ms = device_ms(lambda: _build.check(lib.checksum_launch(
+        x.data_ptr(), 4 * n, sums.data_ptr(), out.data_ptr(), stream),
+        "checksum"), reps=5, warmup=1)
+    del sums, out
     y = x.clone()
     y.view(-1)[::7] += 1e-3
     ra, rb = as_bytes(x), as_bytes(y)
@@ -596,8 +628,9 @@ def check_leaf(card: str, gen, shape, what: str):
         q.data_ptr(), sc.data_ptr(), n, k.data_ptr(), stream), "dequantize"),
         reps=5, warmup=1)
     quant_bytes = 4 * n + n + 4 * rows
-    log(f"{what} {shape} f32 ({4 * n} bytes): xor, quantize and "
-        f"dequantize bit-exact against their plain versions; kernel_ms xor "
+    log(f"{what} {shape} f32 ({4 * n} bytes): checksum, xor, quantize and "
+        f"dequantize bit-exact against their plain versions; kernel_ms "
+        f"checksum {sum_ms:.4f} (bound {bound_ms(4 * n):.4f}), xor "
         f"{xor_ms:.4f} (bound {bound_ms(3 * 4 * n):.4f}), quantize "
         f"{q_ms:.4f}, dequantize {dq_ms:.4f} (bound "
         f"{bound_ms(quant_bytes):.4f} each) [{card}]")
@@ -852,16 +885,24 @@ def phase_serve(cfg, rc, batch: int, root: str, report: dict):
     logits, state = prefill_step(params, {"tokens": prompts})
     torch.cuda.synchronize()
     report["prefill_s"] = time.monotonic() - t0
-    T_cap = min(cfg.sliding_window, S) if cfg.sliding_window else (
-        S + rc.decode_margin)
-    want = (cfg.n_layers, batch, T_cap, cfg.n_kv_heads_padded, cfg.head_dim)
+    if cfg.rwkv:      # the la state: fixed-size, whatever the prompt
+        leaf = "la"
+        want = (cfg.n_layers, batch, cfg.n_heads_padded, cfg.head_dim,
+                cfg.head_dim)
+    else:
+        leaf = "k"
+        T_cap = min(cfg.sliding_window, S) if cfg.sliding_window else (
+            S + rc.decode_margin)
+        want = (cfg.n_layers, batch, T_cap, cfg.n_kv_heads_padded,
+                cfg.head_dim)
     if (tuple(logits.shape) != (batch, cfg.vocab_padded)
             or not torch.isfinite(logits).all()
             or int(state["pos"]) != S
-            or tuple(state["layers"]["k"].shape) != want):
+            or tuple(state["layers"][leaf].shape) != want):
         raise AssertionError(f"prefill: logits {tuple(logits.shape)}, pos "
-                             f"{int(state['pos'])}, cache "
-                             f"{tuple(state['layers']['k'].shape)} != {want}")
+                             f"{int(state['pos'])}, cache {leaf} "
+                             f"{tuple(state['layers'][leaf].shape)} != "
+                             f"{want}")
 
     d = os.path.join(root, "serve")
     mgr = CheckpointManager(d, delta_keys=("decode",), device=dev)
@@ -936,6 +977,7 @@ def report_serve(name: str, cfg, rc, batch: int, r: dict, card: str):
         + (f", SSM state {cfg.ssm_state} x d_inner "
            f"{cfg.ssm_expand * cfg.d_model}" if cfg.ssm_state else "")
         + (f", SWA {cfg.sliding_window}" if cfg.sliding_window else "")
+        + (", attention-free (RWKV-6 time-mix)" if cfg.rwkv else "")
         + f"; B={batch} prompts of {rc.shape.seq_len}, bf16 compute, f32 "
         f"params; {SERVE_STEPS} greedy tokens")
     log(f"{name}: init_s {r['init_s']:.4f}, prefill_s {r['prefill_s']:.4f}, "
@@ -1258,14 +1300,16 @@ def phase_preempt(root: str, report: dict):
 # the update freeing them as it goes, peaks at 73.1 GB).  S 8192 is
 # twice the SWA window, so training takes the sliding-window path.
 MOE_BATCH, MOE_SEQ = 1, 8192
-# hymba-1.5b at full width and depth, B 4 x S 4096: the reference's
-# train_4k sequence length, four times the SWA window of 1024, so
-# training takes the sliding-window path; cut in batch only, from
-# train_4k's 256.  At B 4 the phase peaks at 73.7 GB with an image's
-# snapshot (a device copy of params and moments, 21.6 GB) held, 51.4 GB
-# before it (an H100 80GB HBM3, 700 W): the optimizer update, not the
-# batch, sets the peak
-HYBRID_BATCH, HYBRID_SEQ = 4, 4096
+# train_hybrid and train_rwkv: the reference's train_4k sequence length,
+# cut in batch from train_4k's 256.  hymba-1.5b at full depth and B 4
+# peaks at 73.7 GB with an image's snapshot (a device copy of params and
+# moments, 21.6 GB) held, 51.4 GB before it (an H100 80GB HBM3, 700 W):
+# the optimizer update, not the batch, sets the peak
+TRAIN_4K_BATCH, TRAIN_4K_SEQ = 4, 4096
+# rwkv6-3b at full width cut to 16 of 32 layers (1,809,787,392 params
+# stored, full-depth hymba-1.5b's size): full depth (3.28 B params)
+# needs 36 bytes a param with the update and an image in flight, 118 GB
+RWKV_LAYERS = 16
 
 
 def _stored_params(cfg) -> int:
@@ -1366,7 +1410,9 @@ def report_train_wide(label: str, cfg, rc, r: dict, peak: int, wall: float,
            if cfg.moe else "")
         + (f", SSM state {cfg.ssm_state} x d_inner "
            f"{cfg.ssm_expand * cfg.d_model}" if cfg.ssm_state else "")
-        + f", SWA {cfg.sliding_window}), B={rc.shape.global_batch} "
+        + (f", SWA {cfg.sliding_window}" if cfg.sliding_window else "")
+        + (", attention-free (RWKV-6 time-mix)" if cfg.rwkv else "")
+        + f"), B={rc.shape.global_batch} "
         f"S={rc.shape.seq_len}, bf16 compute, f32 params")
     log(f"{label}: init_s {r['init_s']:.4f}; step_s "
         f"{[round(x, 4) for x in r['step_s']]}; resumed "
@@ -1461,19 +1507,28 @@ def main() -> int:
     train_moe_cfg = dataclasses.replace(ARCHS["mixtral-8x7b"], n_layers=1)
     train_moe_rc = RunConfig(model=train_moe_cfg, shape=ShapeConfig(
         "train_moe_h100", MOE_SEQ, MOE_BATCH, "train"), attn_chunk=128)
-    # hymba-1.5b at full width and depth: serving as serve_dense does,
-    # training cut in batch only (`HYBRID_BATCH`)
+    # hymba-1.5b at full width and depth, serving as serve_dense does,
+    # training cut in batch only (`TRAIN_4K_BATCH`)
     hybrid_cfg = ARCHS["hymba-1.5b"]
     hybrid_rc = RunConfig(model=hybrid_cfg,
                           shape=ShapeConfig("serve_h100", 2048, 8, "prefill"))
     train_hybrid_rc = RunConfig(model=hybrid_cfg, shape=ShapeConfig(
-        "train_hybrid_h100", HYBRID_SEQ, HYBRID_BATCH, "train"),
+        "train_hybrid_h100", TRAIN_4K_SEQ, TRAIN_4K_BATCH, "train"),
         attn_chunk=128)
+    # rwkv6-3b: serving at full width and depth, training cut in depth
+    # (`RWKV_LAYERS`) and batch (`TRAIN_4K_BATCH`)
+    rwkv_cfg = ARCHS["rwkv6-3b"]
+    rwkv_rc = RunConfig(model=rwkv_cfg,
+                        shape=ShapeConfig("serve_h100", 2048, 8, "prefill"))
+    train_rwkv_cfg = dataclasses.replace(rwkv_cfg, n_layers=RWKV_LAYERS)
+    train_rwkv_rc = RunConfig(model=train_rwkv_cfg, shape=ShapeConfig(
+        "train_rwkv_h100", TRAIN_4K_SEQ, TRAIN_4K_BATCH, "train"))
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     report: dict = {"serve_dense": {}, "serve_moe": {}, "serve_hybrid": {},
-                    "world_pipeline": {}, "world_cross": {},
-                    "world_elastic": {}, "cli": {}, "quickstart": {},
-                    "preempt": {}, "train_moe": {}, "train_hybrid": {}}
+                    "serve_rwkv": {}, "world_pipeline": {},
+                    "world_cross": {}, "world_elastic": {}, "cli": {},
+                    "quickstart": {}, "preempt": {}, "train_moe": {},
+                    "train_hybrid": {}, "train_rwkv": {}}
     counters = {"checksum": (cops, "launches"), "xor_delta": (dops, "launches"),
                 "quantize_int8": (qops, "launches"),
                 "dequantize_int8": (qops, "dequantize_launches")}
@@ -1491,6 +1546,9 @@ def main() -> int:
         "serve_hybrid": (lambda: phase_serve(hybrid_cfg, hybrid_rc, 8, root,
                                              report["serve_hybrid"]),
                          ("checksum", "xor_delta")),
+        "serve_rwkv": (lambda: phase_serve(rwkv_cfg, rwkv_rc, 8, root,
+                                           report["serve_rwkv"]),
+                       ("checksum", "xor_delta")),
         "world_pipeline": (lambda: phase_world_pipeline(
             root, report["world_pipeline"]), ("xor_delta",)),
         "world_cross": (lambda: phase_world_cross(
@@ -1513,6 +1571,10 @@ def main() -> int:
             hybrid_cfg, train_hybrid_rc, root, report["train_hybrid"],
             "train_hybrid"),
             ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+        "train_rwkv": (lambda: phase_train_wide(
+            train_rwkv_cfg, train_rwkv_rc, root, report["train_rwkv"],
+            "train_rwkv"),
+            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
     }
     by_phase, peaks, wall = {}, {}, {}
     for phase, (drive, _) in paths.items():
@@ -1534,7 +1596,7 @@ def main() -> int:
             + (f" (of them in socket rank processes: {elsewhere})"
                if elsewhere else ""))
     shutil.rmtree(root, ignore_errors=True)
-    for name in ("serve_dense", "serve_moe", "serve_hybrid"):
+    for name in ("serve_dense", "serve_moe", "serve_hybrid", "serve_rwkv"):
         report[name]["peak"] = peaks[name]
 
     # phase 4: report
@@ -1558,10 +1620,13 @@ def main() -> int:
     report_serve("serve_moe", moe_cfg, moe_rc, 4, report["serve_moe"], card)
     report_serve("serve_hybrid", hybrid_cfg, hybrid_rc, 8,
                  report["serve_hybrid"], card)
+    report_serve("serve_rwkv", rwkv_cfg, rwkv_rc, 8, report["serve_rwkv"],
+                 card)
     report_worlds(report, peaks, wall, card)
     report_entry_points(report, peaks, wall, card)
     for name, c, r in (("train_moe", train_moe_cfg, train_moe_rc),
-                       ("train_hybrid", hybrid_cfg, train_hybrid_rc)):
+                       ("train_hybrid", hybrid_cfg, train_hybrid_rc),
+                       ("train_rwkv", train_rwkv_cfg, train_rwkv_rc)):
         report_train_wide(name, c, r, report[name], peaks[name], wall[name],
                           card)
     log(f"main-path launches, each phase from 0: {by_phase}")

@@ -38,6 +38,14 @@ def rms_norm(x, scale, eps: float = 1e-5):
     return ((x * torch.rsqrt(var + eps)) * scale).to(dt)
 
 
+def head_rms_norm(x, eps: float = 1e-5):
+    """Per-head RMS norm (rwkv group-norm analogue). x: (..., H, hd)."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(dt)
+
+
 # --------------------------------------------------------------------------
 # Rotary position embeddings
 # --------------------------------------------------------------------------

@@ -1,27 +1,30 @@
-"""Model assembly for dense, MoE and hybrid-SSM decoders: init,
-forward, forward_loss, and the serving entry points prefill and
-decode_step.
+"""Model assembly for dense, MoE, hybrid-SSM and attention-free (RWKV-6)
+decoders: init, forward, forward_loss, and the serving entry points
+prefill and decode_step.
 
-Port of `repro.models.transformer` for the dense, moe and hybrid
-families (GQA, optional QKV bias, RoPE, SwiGLU or routed experts, full
-causal or sliding-window attention, tied or untied head; hybrid blocks
-run Mamba-2-style SSM heads, `repro_torch.models.mamba`, beside
-attention on the same normed input and average the two).  Parameter
-names, shapes, dtypes and the logical-axes trees (params and decode
-state) are the reference's: blocks are stacked on a leading (L, ...)
-layer axis and heads are stored padded (`cfg.n_heads_padded`,
-`cfg.n_kv_heads_padded`), so every flattened leaf path
-(`params/blocks/attn/wq`, `decode/layers/k`, `decode/layers/ssm`, ...)
-is the same in both packages and images move between them.  Other families (rwkv, enc-dec,
-vision cross-attention) raise `NotImplementedError`; ROADMAP.md queues
-them.
+Port of `repro.models.transformer` for the dense, moe, hybrid and ssm
+(rwkv) families (GQA, optional QKV bias, RoPE, SwiGLU or routed experts,
+full causal or sliding-window attention, tied or untied head; hybrid
+blocks run Mamba-2-style SSM heads, `repro_torch.models.mamba`, beside
+attention on the same normed input and average the two; rwkv blocks are
+a time-mix and a channel-mix, `repro_torch.models.rwkv`, with no
+attention and no K/V cache).  Parameter names, shapes, dtypes and the
+logical-axes trees (params and decode state) are the reference's:
+blocks are stacked on a leading (L, ...) layer axis and heads are stored
+padded (`cfg.n_heads_padded`, `cfg.n_kv_heads_padded`), so every
+flattened leaf path (`params/blocks/attn/wq`, `params/blocks/tm/wr`,
+`decode/layers/k`, `decode/layers/ssm`, `decode/layers/la`, ...) is the
+same in both packages and images move between them.  The enc-dec and
+vision cross-attention families raise `NotImplementedError`; ROADMAP.md
+queues them.
 
 Decode is functional, as the reference's: `decode_step` returns a new
 state and leaves the one it was given as it was (a live image taken
 between two steps depends on that).  It copies the stacked caches once
 per step and writes the new token's K/V into that copy at a host
-integer slot, and a hybrid block's new SSM state and conv tail over its
-layer's slices of the copy; `pos` is read to the host once per step.
+integer slot, a hybrid block's new SSM state and conv tail, and an rwkv
+block's new `la` state and token-shift states, over its layer's slices
+of the copy; `pos` is read to the host once per step.
 
 Remat: with `rc.remat_policy` other than "none", each block runs under
 `torch.utils.checkpoint` (non-reentrant) and saves only its input, the
@@ -42,13 +45,14 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Dense, MoE and hybrid-SSM decoders, with or without sliding-window
-    attention, are ported; the other families are not yet."""
+    """Dense, MoE, hybrid-SSM and rwkv decoders, with or without
+    sliding-window attention, are ported; the other families are not
+    yet."""
     other = [name for name, on in (
-        ("rwkv", cfg.rwkv),
         ("enc-dec", cfg.enc_dec),
         ("vision cross-attention", cfg.cross_attn_every)) if on]
     if other:
@@ -99,6 +103,21 @@ def _init_dense_blocks(gen, cfg: ModelConfig, device):
     return params, logical
 
 
+def _init_rwkv_blocks(gen, cfg: ModelConfig, device):
+    """Stacked (L, ...) rwkv blocks: the reference's vmapped per-layer
+    init, drawn as one tensor per leaf."""
+    n = cfg.n_layers
+    params: Dict[str, Any] = {"ln1": L._norm_init((n, cfg.d_model), device),
+                              "ln2": L._norm_init((n, cfg.d_model), device)}
+    logical: Dict[str, Any] = {"ln1": (None,), "ln2": (None,)}
+    params["tm"], logical["tm"] = rwkv_mod.init_rwkv_time_mix(
+        gen, cfg.d_model, cfg.n_heads_padded, cfg.head_dim, device=device,
+        stack=n)
+    params["cm"], logical["cm"] = rwkv_mod.init_rwkv_channel_mix(
+        gen, cfg.d_model, cfg.d_ff, device=device, stack=n)
+    return params, _prepend_layers(logical)
+
+
 def _prepend_layers(logical):
     if isinstance(logical, dict):
         return {k: _prepend_layers(v) for k, v in logical.items()}
@@ -116,8 +135,8 @@ def init_params(cfg: ModelConfig, generator, device) -> Tuple[Dict, Dict]:
         device=device)
     params["ln_f"] = L._norm_init((cfg.d_model,), device)
     logical["ln_f"] = (None,)
-    params["blocks"], logical["blocks"] = _init_dense_blocks(
-        generator, cfg, device)
+    init_blocks = _init_rwkv_blocks if cfg.rwkv else _init_dense_blocks
+    params["blocks"], logical["blocks"] = init_blocks(generator, cfg, device)
     return params, logical
 
 
@@ -172,6 +191,18 @@ def _mixer_block_seq(cfg, rc, rules, p, x, positions, causal=True):
     return x, aux, cache
 
 
+def _rwkv_block_seq(cfg, rc, p, x):
+    """One rwkv block over a full sequence -> (x, aux, cache): the final
+    `la` state and the two token-shift states."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    tm_out, la, shift_a = rwkv_mod.rwkv_time_mix(
+        p["tm"], h, chunk=rc.la_chunk, mask=attn.head_mask(cfg, x.device))
+    x = x + tm_out
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    cm_out, shift_c = rwkv_mod.rwkv_channel_mix(p["cm"], h2)
+    return x + cm_out, {}, {"la": la, "shift_a": shift_a, "shift_c": shift_c}
+
+
 def _layer_params(blocks, i: int):
     if isinstance(blocks, dict):
         return {k: _layer_params(v, i) for k, v in blocks.items()}
@@ -184,7 +215,9 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
 
     Returns (hidden (B,S,d), aux-losses, caches | None); caches are
     {"k", "v"} stacked (L, B, T, K, hd), and for hybrid blocks also
-    {"ssm"} (L, B, H, N, hd) f32 and {"conv"} (L, B, 3, d_in)."""
+    {"ssm"} (L, B, H, N, hd) f32 and {"conv"} (L, B, 3, d_in); for rwkv
+    blocks {"la"} (L, B, H, hd, hd) f32 and {"shift_a", "shift_c"}
+    (L, B, d)."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -198,7 +231,10 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(x, p):
-        x, aux, cache = _mixer_block_seq(cfg, rc, rules, p, x, positions)
+        if cfg.rwkv:
+            x, aux, cache = _rwkv_block_seq(cfg, rc, p, x)
+        else:
+            x, aux, cache = _mixer_block_seq(cfg, rc, rules, p, x, positions)
         return x, aux.get("moe_aux", zero), cache
 
     moe_aux = zero
@@ -259,14 +295,25 @@ def init_decode_state(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig,
                       device=None):
     """Zero-initialized decode caches for a (arch, shape) cell, layout
     (L, B, T, K, hd), plus for hybrid blocks the SSM state (L, B, H, N,
-    d_in/H) f32 and the conv tail (L, B, 3, d_in), on `device` (None ->
-    cuda, or raises)."""
+    d_in/H) f32 and the conv tail (L, B, 3, d_in); for rwkv blocks no
+    K/V, but the `la` state (L, B, H, hd, hd) f32 and the token-shift
+    states (L, B, d).  On `device` (None -> cuda, or raises)."""
     _require_ported(cfg)
     device = resolve_device(device)
     Lh, B = cfg.n_layers, shape.global_batch
+    dt = getattr(torch, rc.dtype)
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    if cfg.rwkv:
+        hd = cfg.head_dim
+        return {"pos": pos, "layers": {
+            "la": torch.zeros((Lh, B, cfg.n_heads_padded, hd, hd),
+                              dtype=torch.float32, device=device),
+            "shift_a": torch.zeros((Lh, B, cfg.d_model), dtype=dt,
+                                   device=device),
+            "shift_c": torch.zeros((Lh, B, cfg.d_model), dtype=dt,
+                                   device=device)}}
     T = _kv_capacity(cfg, shape.seq_len)
     kv_shape = (Lh, B, T, cfg.n_kv_heads_padded, cfg.head_dim)
-    dt = getattr(torch, rc.dtype)
     layers = {"k": torch.zeros(kv_shape, dtype=dt, device=device),
               "v": torch.zeros(kv_shape, dtype=dt, device=device)}
     if cfg.ssm_state:
@@ -276,13 +323,17 @@ def init_decode_state(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig,
                                     dtype=torch.float32, device=device)
         layers["conv"] = torch.zeros((Lh, B, mam.CONV_W - 1, d_in), dtype=dt,
                                      device=device)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "layers": layers}
+    return {"pos": pos, "layers": layers}
 
 
 def decode_state_logical(cfg: ModelConfig):
     """Logical axes for the decode state (for the checkpoint manifest)."""
     _require_ported(cfg)
+    if cfg.rwkv:
+        return {"pos": (), "layers": {
+            "la": (None, "batch", "heads", None, None),
+            "shift_a": (None, "batch", None),
+            "shift_c": (None, "batch", None)}}
     kv = (None, "batch", "cache_time", "kv_heads", None)
     lay = {"k": kv, "v": kv}
     if cfg.ssm_state:
@@ -316,6 +367,25 @@ def _decode_mixer_block(cfg, rc, rules, p, x, lcache, pos: int):
     return x + y
 
 
+def _decode_rwkv_block(cfg, p, x, lcache):
+    """One rwkv block, one token.  Writes the new `la` state and the two
+    token-shift states into `lcache` (this layer's slices of the step's
+    own copy of the caches) in place; `copy_` casts the shift states back
+    to their stored dtype."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    tm_out, la, shift_a = rwkv_mod.rwkv_time_mix_step(
+        p["tm"], h, lcache["la"], lcache["shift_a"],
+        mask=attn.head_mask(cfg, x.device))
+    x = x + tm_out
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    cm_out, shift_c = rwkv_mod.rwkv_channel_mix_step(p["cm"], h2,
+                                                     lcache["shift_c"])
+    lcache["la"].copy_(la)
+    lcache["shift_a"].copy_(shift_a)
+    lcache["shift_c"].copy_(shift_c)
+    return x + cm_out
+
+
 def _logits(params, cfg, x):
     head = L.head_matrix(params["embed"])
     logits = torch.einsum("...d,dv->...v", x, head.to(x.dtype))
@@ -335,9 +405,12 @@ def decode_step(params, cfg: ModelConfig, rc: RunConfig, rules, state, token):
     pos = int(state["pos"])              # the step's one host copy of pos
     caches = {key: c.clone() for key, c in state["layers"].items()}
     for i in range(cfg.n_layers):
-        x = _decode_mixer_block(cfg, rc, rules,
-                                _layer_params(params["blocks"], i), x,
-                                {key: c[i] for key, c in caches.items()}, pos)
+        p = _layer_params(params["blocks"], i)
+        lcache = {key: c[i] for key, c in caches.items()}
+        if cfg.rwkv:
+            x = _decode_rwkv_block(cfg, p, x, lcache)
+        else:
+            x = _decode_mixer_block(cfg, rc, rules, p, x, lcache, pos)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return _logits(params, cfg, x), {"pos": state["pos"] + 1,
                                      "layers": caches}
@@ -358,10 +431,10 @@ def prefill(params, cfg: ModelConfig, rc: RunConfig, rules, batch):
             "slots align (slot = pos % window)")
     x, _, layers = forward(params, cfg, rc, rules, batch, want_cache=True)
     logits = _logits(params, cfg, x[:, -1])
-    if not cfg.sliding_window:
+    if not cfg.rwkv and not cfg.sliding_window:
         # full-attention KV caches need headroom for subsequent decodes
-        # (the time axis is ndim-3 of (L, B, T, K, hd)); the SSM state
-        # and conv tail are fixed-size
+        # (the time axis is ndim-3 of (L, B, T, K, hd)); the SSM state,
+        # conv tail and rwkv states are fixed-size
         for key in ("k", "v"):
             layers[key] = torch.nn.functional.pad(
                 layers[key], (0, 0, 0, 0, 0, rc.decode_margin))

@@ -3,9 +3,9 @@ kernel bit for bit against its plain PyTorch version, launch counting,
 a bit-identical resume through MANARuntime, and serving with live
 decode-state images (bit-identical continuation after a delta-chain
 restore, the SWA ring wrap, MoE capacity drops, the checksum and XOR
-launches of a decode-state image, reduced hymba with a padded KV head:
-a train step and a decode step against the CPU and its decode-state
-image), and the wire codec and worlds with
+launches of a decode-state image, reduced hymba with a padded KV head
+and reduced rwkv6-3b with a padded head: a train step and a decode step
+against the CPU and its decode-state image), and the wire codec and worlds with
 rank state on the card (`SnapshotCodec` blobs from CUDA tensors equal
 those from CPU tensors, `decode_chain(device="cuda")` equals the host
 decode, a 2-rank socket world of card shards commits and restores).
@@ -432,6 +432,67 @@ def test_hybrid_padded_train_step_and_decode_image_on_card(dev, tmp_path):
     for key in sg["layers"]:
         assert torch.equal(got["decode"]["layers"][key], sg["layers"][key])
     assert got["decode"]["layers"]["k"].device.type == "cuda"
+
+
+def test_rwkv_padded_train_step_and_decode_image_on_card(dev, tmp_path):
+    """Reduced rwkv6-3b with a padded head and no grouping (5 heads
+    stored as 6, as the full-width config's 40 are stored as 48): a train
+    step's loss and every gradient on the card agree with the CPU
+    (float32); prefill and a decode step on the card agree with the CPU,
+    the `la` and token-shift states included; a decode-state image
+    digests its 4 leaves (checksum), a delta image XORs them, and the
+    restore gives the live state back bit for bit."""
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.training.step import make_serve_steps
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = reduced_config(ARCHS["rwkv6-3b"], n_heads=5, n_kv_heads=5,
+                         head_dim=8, pad_to=2)
+    assert cfg.n_heads_padded == 6
+    rc = RunConfig(model=cfg, shape=ShapeConfig("s", 64, 2, "train"),
+                   loss_chunk=32, attn_chunk=16, dtype="float32")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(8)
+    params, _ = T.init_params(cfg, gen, "cpu")
+    batch = SyntheticDataset(cfg, rc.shape, seed=8).get_batch(0)
+
+    def loss_and_grads(device):
+        leaves = [p.to(device).requires_grad_(True)
+                  for p in tree_leaves(params)]
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        loss, _ = T.forward_loss(tree_unflatten(params, leaves), cfg, rc,
+                                 None, b)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    lg, gg = loss_and_grads(dev)
+    lc, gc = loss_and_grads("cpu")
+    _f32_close(lg, lc)
+    for a, b in zip(gg, gc):
+        _f32_close(a, b)
+
+    prefill, serve = make_serve_steps(cfg, rc)
+    toks = torch.from_numpy(batch["tokens"])
+    card = tree_map(lambda t: t.to(dev), params)
+    _, sc = prefill(params, {"tokens": toks})
+    _, sg = prefill(card, {"tokens": toks.to(dev)})
+    mgr = CheckpointManager(str(tmp_path), delta_keys=("decode",), device=dev)
+    c0, x0 = cops.launches, dops.launches
+    mgr.save(1, {"decode": sg}, {"decode": T.decode_state_logical(cfg)})
+    lc, sc = serve(params, sc, toks[:, :1])
+    lg, sg = serve(card, sg, toks[:, :1].to(dev))
+    _f32_close(lg, lc)
+    assert sorted(sg["layers"]) == ["la", "shift_a", "shift_c"]
+    for key in sg["layers"]:
+        _f32_close(sg["layers"][key], sc["layers"][key])
+    mgr.save(2, {"decode": sg}, {"decode": T.decode_state_logical(cfg)})
+    # 4 digests, then the base read back (4) and the delta digested (4)
+    assert cops.launches == c0 + 12 and dops.launches == x0 + 4
+    got, _ = mgr.restore(2)
+    for key in sg["layers"]:
+        assert torch.equal(got["decode"]["layers"][key], sg["layers"][key])
+    assert got["decode"]["layers"]["la"].device.type == "cuda"
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,11 @@
-"""The port's dense and hybrid-SSM models (layers, GQA flash attention,
-loss, gradients) against the JAX package at reduced qwen2-0.5b and
-reduced hymba-1.5b, each unpadded and with `pad_to=16` (padded heads
-masked; hymba padded as 25 heads over 5 KV heads, stored as 48 over 6,
-the padding of the full-width config, so a dummy KV group runs).  Both
+"""The port's dense, hybrid-SSM and RWKV-6 models (layers, GQA flash
+attention, loss, gradients) against the JAX package at reduced
+qwen2-0.5b, reduced hymba-1.5b and reduced rwkv6-3b, each unpadded and
+with padded heads masked (qwen2 with `pad_to=16`; hymba padded as 25
+heads over 5 KV heads, stored as 48 over 6, the padding of the
+full-width config, so a dummy KV group runs; rwkv as 5 heads stored as
+6, padding without grouping as rwkv6-3b's 40 heads are stored as 48,
+with `pad_to=2` so that the 256-entry vocabulary stays unpadded).  Both
 packages get the same inputs and the same parameters: the JAX init,
 carried over with `repro_torch.convert.state_from_numpy`.
 
@@ -78,15 +81,18 @@ def _tnp(x):
 # reduced hymba with the full-width config's head padding: 25 heads over
 # 5 KV heads pad to 48 over 6 (K_pad > K)
 HYMBA_PAD = dict(n_heads=25, n_kv_heads=5, head_dim=8, pad_to=16)
+# reduced rwkv6-3b with padded heads and no grouping: 5 heads stored as 6
+RWKV_PAD = dict(n_heads=5, n_kv_heads=5, head_dim=8, pad_to=2)
 
 
 @pytest.fixture(scope="module", params=[
     ("qwen2-0.5b", dict(pad_to=1)), ("qwen2-0.5b", dict(pad_to=16)),
-    ("hymba-1.5b", {}), ("hymba-1.5b", HYMBA_PAD)],
-    ids=["unpadded", "pad16", "hymba", "hymba-pad16"])
+    ("hymba-1.5b", {}), ("hymba-1.5b", HYMBA_PAD),
+    ("rwkv6-3b", {}), ("rwkv6-3b", RWKV_PAD)],
+    ids=["unpadded", "pad16", "hymba", "hymba-pad16", "rwkv", "rwkv-pad"])
 def model(request):
-    """(jax cfg, port cfg, numpy params) for reduced qwen2-0.5b or
-    hymba-1.5b."""
+    """(jax cfg, port cfg, numpy params) for reduced qwen2-0.5b,
+    hymba-1.5b or rwkv6-3b."""
     arch, overrides = request.param
     jcfg = jreduced(JARCHS[arch], **overrides)
     cfg = reduced_config(ARCHS[arch], **overrides)
@@ -96,15 +102,25 @@ def model(request):
     # nonzero biases and SSM constants so their paths are exercised
     blocks = params["blocks"]
     for k in ("bq", "bk", "bv"):
-        if k in blocks["attn"]:
+        if k in blocks.get("attn", {}):
             blocks["attn"][k] = (rng.randn(*blocks["attn"][k].shape) * 0.1
                                  ).astype(np.float32)
     for k in ("conv_b", "dt_bias", "A_log", "D"):
         if "mamba" in blocks:
             blocks["mamba"][k] = (blocks["mamba"][k] + rng.randn(
                 *blocks["mamba"][k].shape) * 0.1).astype(np.float32)
+    if "tm" in blocks:
+        # per-token mixes, decay offsets and bonuses off their constants
+        tm, cm = blocks["tm"], blocks["cm"]
+        tm["mu"] = rng.uniform(0, 1, tm["mu"].shape).astype(np.float32)
+        for k in ("w0", "u"):
+            tm[k] = (tm[k] + rng.randn(*tm[k].shape) * 0.3).astype(np.float32)
+        for k in ("mu_ck", "mu_cr"):
+            cm[k] = rng.uniform(0, 1, cm[k].shape).astype(np.float32)
     if arch == "hymba-1.5b" and overrides:
         assert (cfg.n_heads_padded, cfg.n_kv_heads_padded) == (48, 6)
+    if arch == "rwkv6-3b" and overrides:
+        assert (cfg.n_heads_padded, cfg.vocab_padded) == (6, cfg.vocab_size)
     return jcfg, cfg, params
 
 
@@ -145,10 +161,14 @@ def test_layers_match_reference(model, dtype):
            _jnp(jL.apply_rope(_j(xr, dtype), jnp.asarray(pos),
                               jcfg.rope_theta)), dtype)
 
-    mlp = {k: v[0] for k, v in params["blocks"]["mlp"].items()}
-    _close(_tnp(L.mlp_apply(state_from_numpy(mlp, "cpu"), _t(x, dtype))),
-           _jnp(jL.mlp_apply(jax.tree.map(jnp.asarray, mlp), _j(x, dtype))),
-           dtype)
+    if "mlp" in params["blocks"]:
+        mlp = {k: v[0] for k, v in params["blocks"]["mlp"].items()}
+        _close(_tnp(L.mlp_apply(state_from_numpy(mlp, "cpu"), _t(x, dtype))),
+               _jnp(jL.mlp_apply(jax.tree.map(jnp.asarray, mlp),
+                                 _j(x, dtype))), dtype)
+    xh = xr.reshape(BATCH, SEQ, 2, 2 * hd)
+    _close(_tnp(L.head_rms_norm(_t(xh, dtype))),
+           _jnp(jL.head_rms_norm(_j(xh, dtype))), dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -271,7 +291,8 @@ def test_forward_loss_and_grads_match_reference(model, dtype):
             assert ours <= 1.25 * theirs + 1e-2, (path, ours, theirs)
     if cfg.n_heads_padded != cfg.n_heads:
         # padded heads get exactly zero gradient in both packages
-        wq = dict(zip(tflat, grads))["blocks/attn/wq"]
+        wq = dict(zip(tflat, grads))[
+            "blocks/tm/wr" if cfg.rwkv else "blocks/attn/wq"]
         dead = _tnp(attn.head_mask(cfg)) == 0
         assert not _tnp(wq)[:, :, dead].any()
 

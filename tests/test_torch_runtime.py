@@ -2,10 +2,11 @@
 tests/test_runtime_resume.py), and checkpoint images carried across
 packages: a JAX image restores in the port and a port image restores
 in the JAX `CheckpointManager`, with delta params and int8 moments on;
-training images of reduced qwen2-0.5b and hymba-1.5b (its SSM leaves:
-(L, 16) f32 constants, the conv weights), and decode-state images of
-reduced Mixtral and hymba (bf16 caches, hymba's f32 SSM state and bf16
-conv tail, the 0-d int32 pos).
+training images of reduced qwen2-0.5b, hymba-1.5b (its SSM leaves:
+(L, 16) f32 constants, the conv weights) and rwkv6-3b (its time-mix and
+channel-mix leaves), and decode-state images of reduced Mixtral, hymba
+and rwkv6-3b (bf16 caches, hymba's f32 SSM state and bf16 conv tail,
+rwkv's f32 `la` state and bf16 token-shift states, the 0-d int32 pos).
 
 Tolerance: none for images — restored params, steps, digests and chunk
 bytes are compared exactly.  The one cross-package resume compares
@@ -107,13 +108,11 @@ def test_async_pipeline_resume(tmp_path):
 
 
 def test_resume_wrong_arch_rejected(tmp_path):
-    """qwen1.5-0.5b stands in for the reference test's rwkv6-3b: the port
-    builds only dense decoders, and the check is on the arch id."""
     cfg = reduced_config(ARCHS["qwen2-0.5b"])
     rt = _rt(cfg, _rc(cfg), tmp_path, ckpt_every_steps=2)
     rt.initialize()
     rt.run(3)
-    cfg2 = reduced_config(ARCHS["qwen1.5-0.5b"])
+    cfg2 = reduced_config(ARCHS["rwkv6-3b"])
     rt2 = _rt(cfg2, _rc(cfg2), tmp_path)
     with pytest.raises(ValueError, match="arch"):
         rt2.restore()
@@ -218,6 +217,11 @@ def test_jax_hybrid_image_restores_in_port(tmp_path):
     _check_jax_image_restores_in_port(tmp_path, "hymba-1.5b")
 
 
+def test_jax_rwkv_image_restores_in_port(tmp_path):
+    """The same for reduced rwkv6-3b."""
+    _check_jax_image_restores_in_port(tmp_path, "rwkv6-3b")
+
+
 def _check_jax_image_restores_in_port(tmp_path, arch):
     hist, live = _jax_run(tmp_path, steps=6, arch=arch, dtype="float32")
     want, jextra = JCheckpointManager(str(tmp_path)).restore(4)
@@ -231,6 +235,8 @@ def _check_jax_image_restores_in_port(tmp_path, arch):
         np.testing.assert_array_equal(got[path], arr, err_msg=path)
     if arch == "hymba-1.5b":
         assert "params/blocks/mamba/A_log" in got
+    if arch == "rwkv6-3b":
+        assert {"params/blocks/tm/u", "opt/v/blocks/cm/wck"} <= set(got)
 
     cfg = reduced_config(ARCHS[arch])
     rt = _rt(cfg, _rc(cfg, dtype="float32"), tmp_path)
@@ -251,6 +257,11 @@ def test_port_image_restores_in_jax(tmp_path):
 def test_port_hybrid_image_restores_in_jax(tmp_path):
     """The same for reduced hymba-1.5b."""
     _check_port_image_restores_in_jax(tmp_path, "hymba-1.5b")
+
+
+def test_port_rwkv_image_restores_in_jax(tmp_path):
+    """The same for reduced rwkv6-3b."""
+    _check_port_image_restores_in_jax(tmp_path, "rwkv6-3b")
 
 
 def _check_port_image_restores_in_jax(tmp_path, arch):
@@ -318,8 +329,8 @@ def test_same_state_writes_identical_images(tmp_path):
 # ---------------------------------------------------------------------------
 
 def _jax_decode_states(n=2, arch="mixtral-8x7b"):
-    """Reduced Mixtral (MoE + SWA) or hymba (hybrid SSM + SWA): the JAX
-    package's decode states after prefill + 1 and prefill + 2 decode
+    """Reduced Mixtral (MoE + SWA), hymba (hybrid SSM + SWA) or rwkv6-3b
+    (attention-free): the JAX package's decode states after prefill + 1 and prefill + 2 decode
     steps, and its numpy params."""
     import jax.numpy as jnp
 
@@ -349,13 +360,14 @@ def _bits(a):
 
 def _assert_same_decode_state(got, want):
     """got: the port's tensors; want: numpy (bf16 as ml_dtypes).  Every
-    cache leaf is bf16 but hymba's SSM state, f32."""
+    cache leaf is bf16 but hymba's SSM state and rwkv's `la` state,
+    f32."""
     ours = state_to_numpy(got)
     assert ours["pos"].shape == () and ours["pos"].dtype == np.int32
     assert int(ours["pos"]) == int(want["pos"])
     assert sorted(got["layers"]) == sorted(want["layers"])
     for key in got["layers"]:
-        dt = "float32" if key == "ssm" else "bfloat16"
+        dt = "float32" if key in ("ssm", "la") else "bfloat16"
         assert got["layers"][key].dtype.__str__() == f"torch.{dt}"
         assert np.asarray(want["layers"][key]).dtype.name == dt
         np.testing.assert_array_equal(ours["layers"][key],
@@ -373,6 +385,12 @@ def test_jax_hybrid_decode_image_restores_in_port(tmp_path):
     _check_jax_decode_image_restores_in_port(tmp_path, "hymba-1.5b")
 
 
+def test_jax_rwkv_decode_image_restores_in_port(tmp_path):
+    """The same for reduced rwkv6-3b: its `la` state (f32) and token-shift
+    states (bf16), and no K/V."""
+    _check_jax_decode_image_restores_in_port(tmp_path, "rwkv6-3b")
+
+
 def _check_jax_decode_image_restores_in_port(tmp_path, arch):
     logical, states, _ = _jax_decode_states(arch=arch)
     jmgr = JCheckpointManager(str(tmp_path), delta_keys=("decode",))
@@ -380,8 +398,9 @@ def _check_jax_decode_image_restores_in_port(tmp_path, arch):
         jmgr.save(step, {"decode": st}, {"decode": logical})
     with open(os.path.join(jmgr.step_dir(2), "manifest.json")) as f:
         arrays = json.load(f)["arrays"]
-    assert arrays["decode/layers/k"]["dtype"] == "bfloat16"
-    assert arrays["decode/layers/k"]["base_step"] == 1
+    cache = "shift_a" if "la" in logical["layers"] else "k"
+    assert arrays[f"decode/layers/{cache}"]["dtype"] == "bfloat16"
+    assert arrays[f"decode/layers/{cache}"]["base_step"] == 1
     assert arrays["decode/pos"]["shape"] == []
     mgr = CheckpointManager(str(tmp_path), device="cpu")
     for step, st in enumerate(states, 1):
@@ -399,6 +418,11 @@ def test_port_decode_image_restores_in_jax(tmp_path):
 def test_port_hybrid_decode_image_restores_in_jax(tmp_path):
     """The same for reduced hymba: its SSM state and conv tail too."""
     _check_port_decode_image_restores_in_jax(tmp_path, "hymba-1.5b")
+
+
+def test_port_rwkv_decode_image_restores_in_jax(tmp_path):
+    """The same for reduced rwkv6-3b: its `la` and token-shift states."""
+    _check_port_decode_image_restores_in_jax(tmp_path, "rwkv6-3b")
 
 
 def _check_port_decode_image_restores_in_jax(tmp_path, arch):
@@ -454,6 +478,11 @@ def test_same_hybrid_decode_state_writes_identical_images(tmp_path):
     """The same for reduced hymba: `state_from_numpy` carries its f32 SSM
     state and bf16 conv tail as they are."""
     _check_same_decode_state_writes_identical_images(tmp_path, "hymba-1.5b")
+
+
+def test_same_rwkv_decode_state_writes_identical_images(tmp_path):
+    """The same for reduced rwkv6-3b."""
+    _check_same_decode_state_writes_identical_images(tmp_path, "rwkv6-3b")
 
 
 def _check_same_decode_state_writes_identical_images(tmp_path, arch):

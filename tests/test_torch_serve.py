@@ -1,10 +1,14 @@
 """The port's serving path against the JAX package: decode and
 sliding-window attention, the KV-cache write, the MoE layer, prefill and
 teacher-forced decode of reduced qwen2-0.5b (dense, full attention),
-reduced Mixtral (MoE + SWA, the ring cache wraps) and reduced hymba-1.5b
+reduced Mixtral (MoE + SWA, the ring cache wraps), reduced hymba-1.5b
 (hybrid SSM + SWA: the decode state adds an f32 SSM state and a conv
 tail; "hymba-pad16" pads 25 heads over 5 KV heads to 48 over 6, as the
-full-width config does), the decode-vs-prefill continuation, the port's
+full-width config does) and reduced rwkv6-3b (attention-free: the
+decode state is an f32 `la` state and two token-shift states, no K/V;
+"rwkv-pad" stores 5 heads as 6, padding without grouping as the
+full-width config's 40 heads are stored as 48), the decode-vs-prefill
+continuation, the port's
 own live-image restore continuation, and the CPU run of the
 `serve_with_snapshot` example twin.  Both packages get
 the same numpy-made inputs; model parameters are the JAX init carried
@@ -246,7 +250,9 @@ SEQ, BATCH, DECODES = 64, 2, 4
 # within that rounding noise)
 VARIANTS = {"hymba-pad16": ("hymba-1.5b", dict(n_heads=25, n_kv_heads=5,
                                                head_dim=8, pad_to=16)),
-            "hymba-full": ("hymba-1.5b", dict(sliding_window=0))}
+            "hymba-full": ("hymba-1.5b", dict(sliding_window=0)),
+            "rwkv-pad": ("rwkv6-3b", dict(n_heads=5, n_kv_heads=5,
+                                          head_dim=8, pad_to=2))}
 
 
 def _model(arch, dtype):
@@ -265,7 +271,8 @@ def _model(arch, dtype):
 
 @pytest.mark.parametrize("arch,dtype", [
     (arch, dtype)
-    for arch in ("qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b", "hymba-pad16")
+    for arch in ("qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b", "hymba-pad16",
+                 "rwkv6-3b", "rwkv-pad")
     for dtype in ("float32", "bfloat16")] + [("hymba-full", "float32")])
 def test_prefill_and_decode_match_reference(arch, dtype):
     jcfg, cfg, jrc, rc, params = _model(arch, dtype)
@@ -297,7 +304,8 @@ def test_prefill_and_decode_match_reference(arch, dtype):
 
 
 def test_decode_state_layout_matches_reference():
-    for arch in ("qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b", "hymba-pad16"):
+    for arch in ("qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b", "hymba-pad16",
+                 "rwkv6-3b", "rwkv-pad"):
         jcfg, cfg, jrc, rc, _ = _model(arch, "bfloat16")
         shape = ShapeConfig("d", 48, 3, "decode")
         ours = T.init_decode_state(cfg, shape, rc, device="cpu")
@@ -314,7 +322,7 @@ def test_decode_state_layout_matches_reference():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b",
-                                  "hymba-pad16"])
+                                  "hymba-pad16", "rwkv6-3b", "rwkv-pad"])
 def test_decode_matches_prefill_continuation(arch):
     """Decode after a prefill of P tokens agrees with the last position
     of a forward over P + 1 tokens (tests/test_archs_smoke.py's check;
@@ -335,7 +343,7 @@ def test_decode_matches_prefill_continuation(arch):
 
 
 def test_unported_families_raise():
-    for arch in ("rwkv6-3b", "whisper-large-v3", "llama-3.2-vision-11b"):
+    for arch in ("whisper-large-v3", "llama-3.2-vision-11b"):
         cfg = reduced_config(ARCHS[arch])
         with pytest.raises(NotImplementedError, match="not ported"):
             T.init_params(cfg, None, "meta")
@@ -354,6 +362,12 @@ def test_hybrid_decode_step_leaves_its_state_unchanged():
     _check_decode_step_leaves_its_state("hymba-1.5b")
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "rwkv-pad"])
+def test_rwkv_decode_step_leaves_its_state_unchanged(arch):
+    """The same for rwkv: the `la` state and both token-shift states."""
+    _check_decode_step_leaves_its_state(arch)
+
+
 def _check_decode_step_leaves_its_state(arch):
     _, cfg, _, rc, params = _model(arch, "bfloat16")
     tparams = state_from_numpy(params, "cpu")
@@ -365,6 +379,7 @@ def _check_decode_step_leaves_its_state(arch):
     _, st2 = serve(tparams, st, toks[:, :1])
     after = state_to_numpy(st)
     assert sorted(after["layers"]) == sorted(
+        ("la", "shift_a", "shift_c") if cfg.rwkv else
         ("k", "v", "ssm", "conv") if cfg.ssm_state else ("k", "v"))
     for key in after["layers"]:
         np.testing.assert_array_equal(after["layers"][key],
@@ -374,7 +389,8 @@ def _check_decode_step_leaves_its_state(arch):
     assert int(st["pos"]) == SEQ and int(st2["pos"]) == SEQ + 1
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b",
+                                  "rwkv6-3b", "rwkv-pad"])
 def test_snapshot_restore_continuation_is_bitwise(arch, tmp_path):
     """A full image at token 6 and an XOR-delta image at token 10; a fresh
     manager restores 10 through the chain, and tokens 11-15 with their
