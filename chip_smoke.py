@@ -45,36 +45,48 @@ each fatal on failure:
      memory, and one JSON line of the kernels with their launches on the
      main path.  The counts are set to 0 just before each main-path
      phase (2, 3, the serve phases, the world phases, cli, quickstart,
-     preempt, train_moe, train_hybrid and train_rwkv) and read just after
-     it, adding
-     the counts that a world phase's spawned socket ranks report from
+     preempt, train_moe, train_hybrid, train_rwkv and train_whisper) and
+     read just after it, adding the counts that a world phase's spawned socket ranks report from
      their own processes; each phase must launch the kernels of its path
      (2, cli: checksum, XOR; 3: checksum, quantize, dequantize; serving:
      checksum, XOR; world_pipeline and world_cross: XOR; quickstart,
-     preempt: checksum; train_moe, train_hybrid, train_rwkv: all four), and
-     `launches` is their sum.  The peak device memory is reset before
-     each phase and printed per phase, with each phase's wall time.
-  serve_dense, serve_moe, serve_hybrid, serve_rwkv: the serving path
-     (`make_serve_steps`) with live decode-state images.  qwen2-0.5b at
-     full width and depth, 8 prompts of 2048 tokens; Mixtral-8x7B at full
-     width cut to 4 of 32 layers, 4 prompts of 8192 tokens (twice the SWA
-     window: prefill takes the SWA path and the first decode wraps the
-     ring); hymba-1.5b at full width and depth (25 heads over 5 KV heads,
+     preempt: checksum; train_moe, train_hybrid, train_rwkv,
+     train_whisper: all four), and `launches` is their sum.  The peak
+     device memory is reset before each phase and printed per phase,
+     with each phase's wall time.
+  serve_dense, serve_moe, serve_hybrid, serve_rwkv, serve_whisper: the
+     serving path (`make_serve_steps`) with live decode-state images.
+     qwen2-0.5b at full width and depth, 8 prompts of 2048 tokens;
+     Mixtral-8x7B at full width cut to 4 of 32 layers, 4 prompts of 8192
+     tokens (twice the SWA window: prefill takes the SWA path and the
+     first decode wraps the ring); hymba-1.5b at full width and depth (25 heads over 5 KV heads,
      stored padded as 48 over 6; SSM heads beside SWA 1024), 8 prompts of
      2048 tokens (twice the window), uncut: its decode state adds an f32
      SSM state and a bf16 conv tail to the K/V ring (459,997,184 bytes in
      all); rwkv6-3b at full width and depth (32 layers, 40 time-mix heads
      stored padded as 48, no attention), 8 prompts of 2048 tokens, uncut:
      its decode state is an f32 `la` state and two bf16 token-shift
-     states (203,948,032 bytes), whatever the prompt's length.  Each:
-     prefill, 16
+     states (203,948,032 bytes), whatever the prompt's length;
+     whisper-large-v3 at full width and depth (32 encoder and 32 decoder
+     layers, 20 heads over 20 KV heads stored padded as 32 over 32), 8
+     requests of (1500, 1280) f32 frames drawn on the card and a 432-token
+     prompt (with 16 decoded tokens, the decoder's 448-token context): its
+     decode state adds the cross K/V `xk`/`xv`, (32, 8, 1500, 32, 64)
+     bf16, 1,572,864,000 bytes each, written by prefill and never by a
+     decode step (4,320,133,124 bytes in all).  Each: prefill, 16
      greedy decode steps, an image of the decode state at token 6 (full)
      and at token 10 (XOR delta on 6); a fresh manager restores token 10
      through the chain onto the card (every leaf equal to the live
      state's), and tokens 11-15 decoded from it
      must equal the first run's tokens and logits bit for bit.  Decode
      after a shorter prefill must agree with a full forward over the
-     same tokens (f32, the first 2 layers, norm-relative 1e-3).
+     same tokens (f32, the first 2 layers, and for whisper the first 2
+     encoder layers over the same frames, norm-relative 1e-3).
+  decode_clone (after the phases, a measurement only): whisper's decode
+     as shipped against the same step with `xk`/`xv` copied first, as
+     every leaf was copied before: ms a token, peak memory, and the
+     kernels a token and busy share of the shipped step
+     (`torch.profiler`).
   world_pipeline, world_cross, world_elastic: multi-rank worlds with the
      rank state on the card, driven through the `multirank_simulation`
      twin (`src/repro_torch/examples/multirank_simulation.py`): 64 inproc
@@ -99,8 +111,8 @@ each fatal on failure:
      steps).  preempt: the preemption twin at its default 200 steps,
      which asserts its restarted losses equal the uninterrupted run's and
      prints PASS.  Step times by host clock.
-  train_moe, train_hybrid, train_rwkv: full-width training through
-     `MANARuntime`.
+  train_moe, train_hybrid, train_rwkv, train_whisper: full-width
+     training through `MANARuntime`.
      train_moe: Mixtral-8x7B at full width cut to 1 of 32 layers (1.71 B
      params, 8 experts top-2, SWA 4096), B 1 x S 8192 (twice the window:
      the SWA path; B 2 does not fit beside an image's snapshot, see
@@ -118,7 +130,11 @@ each fatal on failure:
      for bit.  train_rwkv: the same run for rwkv6-3b at full width cut to
      16 of 32 layers (1,809,787,392 params stored, heads padded 40 -> 48;
      full depth's 3.28 B params would need 118 GB with an image in
-     flight, see `RWKV_LAYERS`), B 4 x S 4096 as train_hybrid.  Each
+     flight, see `RWKV_LAYERS`), B 4 x S 4096 as train_hybrid.
+     train_whisper: the same run for whisper-large-v3 at full width cut to
+     24 of 32 layers in both stacks (1,831,641,600 params stored; full
+     depth's 2.40 B would need 86.3 GB, see `WHISPER_LAYERS`), B 4 x S
+     4096 decoder tokens, 1500 frames a sample.  Each
      prints step seconds, image bytes,
      write and restore seconds, the peak device memory of its first two
      steps (before any image holds a snapshot copy of the state) and of
@@ -811,13 +827,14 @@ def _rel(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def _check_decode_against_forward(params, cfg, rc, prompts, report):
+def _check_decode_against_forward(params, cfg, rc, inputs, report):
     """Prefill + one decode step against a full forward over the same
-    tokens, on the full-width params cut to their first 2 layers, in
-    float32, for the first prompt.  (At full depth the random-init
-    network amplifies rounding: decode and forward of qwen2-0.5b part far
-    beyond rounding even in float32, while their first layers agree to
-    it.)
+    tokens, on the full-width params cut to their first 2 layers (and,
+    for enc-dec, 2 encoder layers, with the first request's frames given
+    to both), in float32, for the first prompt.  (At full depth the
+    random-init network amplifies rounding: decode and forward of
+    qwen2-0.5b part far beyond rounding even in float32, while their
+    first layers agree to it.)
 
     The prefill takes P tokens: P = S - 1, or the SWA window, so that the
     decode wraps a ring of capacity P.  The forward runs over P + 1
@@ -836,18 +853,27 @@ def _check_decode_against_forward(params, cfg, rc, prompts, report):
     cut = dataclasses.replace(cfg, n_layers=depth)
     cut_params = dict(params, blocks=tree_map(lambda t: t[:depth],
                                               params["blocks"]))
+    extra_in = {}
+    if cfg.enc_dec:
+        cut = dataclasses.replace(cut, n_enc_layers=depth)
+        cut_params["enc_blocks"] = tree_map(lambda t: t[:depth],
+                                            params["enc_blocks"])
+        extra_in["frames"] = inputs["frames"][:1]
     f32 = dataclasses.replace(rc, model=cut, dtype="float32",
                               remat_policy="none")
+    prompts = inputs["tokens"]
     P = cfg.sliding_window or prompts.shape[1] - 1
     extra = 512 if cfg.moe is not None else 1
     toks = prompts[:1, :P + extra]
     if toks.shape[1] != P + extra or (cfg.moe is not None and P % 512):
         raise AssertionError(f"check needs {P + extra} tokens, P % 512 == 0")
     with torch.no_grad():
-        _, st = T.prefill(cut_params, cut, f32, None, {"tokens": toks[:, :P]})
+        _, st = T.prefill(cut_params, cut, f32, None,
+                          {"tokens": toks[:, :P], **extra_in})
         dec, _ = T.decode_step(cut_params, cut, f32, None, st,
                                toks[:, P:P + 1])
-        x, _, _ = T.forward(cut_params, cut, f32, None, {"tokens": toks})
+        x, _, _ = T.forward(cut_params, cut, f32, None,
+                            {"tokens": toks, **extra_in})
         full = T._logits(cut_params, cut, x[:, P])
     V = cfg.vocab_size
     err = _rel(dec[:, 0, :V], full[..., :V])
@@ -858,6 +884,22 @@ def _check_decode_against_forward(params, cfg, rc, prompts, report):
     if not torch.equal(dec[:, 0, V:], full[..., V:]):
         raise AssertionError(f"decode's {dec.shape[-1] - V} vocabulary "
                              f"padding columns differ from the forward's")
+
+
+def _serve_inputs(cfg, S: int, batch: int, gen) -> dict:
+    """`batch` prompts of S tokens drawn on the card, and for enc-dec
+    models (batch, Te, d) f32 stub frames from the same generator."""
+    import torch
+
+    dev = torch.device("cuda")
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (batch, S),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int32)}
+    if cfg.enc_dec:
+        inputs["frames"] = torch.randn((batch, cfg.enc_positions,
+                                        cfg.d_model), generator=gen,
+                                       device=dev)
+    return inputs
 
 
 def phase_serve(cfg, rc, batch: int, root: str, report: dict):
@@ -878,11 +920,10 @@ def phase_serve(cfg, rc, batch: int, root: str, report: dict):
     torch.cuda.synchronize()
     report["init_s"] = time.monotonic() - t0
     prefill_step, serve_step = make_serve_steps(cfg, rc)
-    prompts = torch.randint(0, cfg.vocab_size, (batch, S), generator=gen,
-                            device=dev, dtype=torch.int32)
+    inputs = _serve_inputs(cfg, S, batch, gen)
 
     t0 = time.monotonic()
-    logits, state = prefill_step(params, {"tokens": prompts})
+    logits, state = prefill_step(params, inputs)
     torch.cuda.synchronize()
     report["prefill_s"] = time.monotonic() - t0
     if cfg.rwkv:      # the la state: fixed-size, whatever the prompt
@@ -895,14 +936,17 @@ def phase_serve(cfg, rc, batch: int, root: str, report: dict):
             S + rc.decode_margin)
         want = (cfg.n_layers, batch, T_cap, cfg.n_kv_heads_padded,
                 cfg.head_dim)
+    shapes = {leaf: want}
+    if cfg.enc_dec:   # the cross K/V: every frame, whatever the prompt
+        shapes["xk"] = (cfg.n_layers, batch, cfg.enc_positions,
+                        cfg.n_kv_heads_padded, cfg.head_dim)
+    got = {key: tuple(state["layers"][key].shape) for key in shapes}
     if (tuple(logits.shape) != (batch, cfg.vocab_padded)
             or not torch.isfinite(logits).all()
-            or int(state["pos"]) != S
-            or tuple(state["layers"][leaf].shape) != want):
+            or int(state["pos"]) != S or got != shapes):
         raise AssertionError(f"prefill: logits {tuple(logits.shape)}, pos "
-                             f"{int(state['pos'])}, cache {leaf} "
-                             f"{tuple(state['layers'][leaf].shape)} != "
-                             f"{want}")
+                             f"{int(state['pos'])}, caches {got} != "
+                             f"{shapes}")
 
     d = os.path.join(root, "serve")
     mgr = CheckpointManager(d, delta_keys=("decode",), device=dev)
@@ -960,8 +1004,8 @@ def phase_serve(cfg, rc, batch: int, root: str, report: dict):
     report["distinct_tokens"] = int(np.unique(
         torch.cat(toks).cpu().numpy()).size)
     del saved, live, state, state2, restored, outs
-    _check_decode_against_forward(params, cfg, rc, prompts, report)
-    del params, prompts
+    _check_decode_against_forward(params, cfg, rc, inputs, report)
+    del params, inputs
     shutil.rmtree(d, ignore_errors=True)
     torch.cuda.empty_cache()
 
@@ -978,6 +1022,9 @@ def report_serve(name: str, cfg, rc, batch: int, r: dict, card: str):
            f"{cfg.ssm_expand * cfg.d_model}" if cfg.ssm_state else "")
         + (f", SWA {cfg.sliding_window}" if cfg.sliding_window else "")
         + (", attention-free (RWKV-6 time-mix)" if cfg.rwkv else "")
+        + (f", enc-dec: {cfg.n_enc_layers} encoder layers over "
+           f"{cfg.enc_positions} frames, cross attention in every decoder "
+           f"layer" if cfg.enc_dec else "")
         + f"; B={batch} prompts of {rc.shape.seq_len}, bf16 compute, f32 "
         f"params; {SERVE_STEPS} greedy tokens")
     log(f"{name}: init_s {r['init_s']:.4f}, prefill_s {r['prefill_s']:.4f}, "
@@ -1310,6 +1357,14 @@ TRAIN_4K_BATCH, TRAIN_4K_SEQ = 4, 4096
 # stored, full-depth hymba-1.5b's size): full depth (3.28 B params)
 # needs 36 bytes a param with the update and an image in flight, 118 GB
 RWKV_LAYERS = 16
+# whisper-large-v3 at full width cut to 24 of 32 layers in both stacks
+# (1,831,641,600 params stored, full-depth hymba-1.5b's size): full depth
+# (2,397,923,840 params) needs 36 bytes a param with the update and an
+# image in flight, 86.3 GB
+WHISPER_LAYERS = 24
+# serve_whisper's prompt: with SERVE_STEPS decoded tokens it ends at the
+# decoder's 448-token context
+WHISPER_PROMPT = 432
 
 
 def _stored_params(cfg) -> int:
@@ -1399,9 +1454,13 @@ def report_train_wide(label: str, cfg, rc, r: dict, peak: int, wall: float,
                       card: str):
     from repro_torch.configs import ARCHS
 
+    full = ARCHS[cfg.arch_id]
     depth = (f"full depth, {cfg.n_layers} layers"
-             if cfg.n_layers == ARCHS[cfg.arch_id].n_layers else
-             f"cut to {cfg.n_layers} of {ARCHS[cfg.arch_id].n_layers} layers")
+             if cfg.n_layers == full.n_layers else
+             f"cut to {cfg.n_layers} of {full.n_layers} layers")
+    if cfg.enc_dec:
+        depth += (f" (decoder) and {cfg.n_enc_layers} of "
+                  f"{full.n_enc_layers} (encoder)")
     log(f"{label}: {cfg.arch_id} at full width, {depth} "
         f"({_stored_params(cfg)} params stored; d {cfg.d_model}, "
         f"{cfg.n_heads_padded}/{cfg.n_kv_heads_padded} padded heads, d_ff "
@@ -1412,6 +1471,8 @@ def report_train_wide(label: str, cfg, rc, r: dict, peak: int, wall: float,
            f"{cfg.ssm_expand * cfg.d_model}" if cfg.ssm_state else "")
         + (f", SWA {cfg.sliding_window}" if cfg.sliding_window else "")
         + (", attention-free (RWKV-6 time-mix)" if cfg.rwkv else "")
+        + (f", enc-dec: {cfg.n_enc_layers} encoder layers over "
+           f"{cfg.enc_positions} frames" if cfg.enc_dec else "")
         + f"), B={rc.shape.global_batch} "
         f"S={rc.shape.seq_len}, bf16 compute, f32 params")
     log(f"{label}: init_s {r['init_s']:.4f}; step_s "
@@ -1426,6 +1487,95 @@ def report_train_wide(label: str, cfg, rc, r: dict, peak: int, wall: float,
         f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB), of "
         f"the first two steps before any image {before} bytes "
         f"({before / 2**30:.2f} GiB) [{card}]")
+
+
+# tokens a block of the decode-clone comparison decodes, and its blocks
+# for each variant
+CLONE_TOKENS, CLONE_BLOCKS = 4, 2
+
+
+def measure_decode_clone(cfg, rc, batch: int, card: str) -> dict:
+    """Whisper's decode as shipped (the cross K/V passed into the new
+    state uncopied) against the same step with `xk` and `xv` copied first,
+    as `decode_step` copied every leaf before: host ms a token over
+    blocks of `CLONE_TOKENS` tokens taking turns, each variant's peak
+    device memory, and for the shipped step the kernels a token and the
+    device's busy share from `torch.profiler`.  A measurement beside the
+    phases: it writes no image and counts no launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.step import make_serve_steps
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params, _ = init_params(cfg, gen, dev)
+    prefill_step, serve_step = make_serve_steps(cfg, rc)
+    logits, state = prefill_step(params, _serve_inputs(
+        cfg, rc.shape.seq_len, batch, gen))
+    box = {"state": state, "tok": _greedy(logits)}
+    del state, logits
+
+    def shipped():
+        return serve_step(params, box["state"], box["tok"])
+
+    def cloned():
+        st = box["state"]
+        layers = dict(st["layers"], xk=st["layers"]["xk"].clone(),
+                      xv=st["layers"]["xv"].clone())
+        return serve_step(params, {"pos": st["pos"], "layers": layers},
+                          box["tok"])
+
+    def step(fn):
+        out, box["state"] = fn()
+        box["tok"] = _greedy(out[:, -1])
+
+    for fn in (shipped, cloned):
+        step(fn)
+    times = {"shipped": [], "cloned": []}
+    peaks = {"shipped": 0, "cloned": 0}
+    for _ in range(CLONE_BLOCKS):
+        for name, fn in (("shipped", shipped), ("cloned", cloned)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(CLONE_TOKENS):
+                t0 = time.monotonic()
+                step(fn)
+                torch.cuda.synchronize()
+                times[name].append(time.monotonic() - t0)
+            peaks[name] = max(peaks[name],
+                              torch.cuda.max_memory_allocated())
+    n = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(n):
+            step(shipped)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e6
+    out = {"times": times, "peaks": peaks,
+           "kernels_per_token": len(kernels) / n,
+           "busy_share": busy / wall if kernels else None}
+    med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in times.items()}
+    ms = {k: [round(t * 1e3, 3) for t in v] for k, v in times.items()}
+    log(f"decode_clone: {cfg.arch_id} B={batch}, decode ms/token median "
+        f"shipped {med['shipped']:.3f} (all {ms['shipped']}), xk/xv copied "
+        f"{med['cloned']:.3f} (all {ms['cloned']}); peak shipped "
+        f"{peaks['shipped']} bytes ({peaks['shipped'] / 2**30:.2f} GiB), "
+        f"copied {peaks['cloned']} bytes ({peaks['cloned'] / 2**30:.2f} "
+        f"GiB) [{card}]")
+    log(f"decode_clone: shipped step under torch.profiler: "
+        f"{out['kernels_per_token']:.0f} kernels a token, busy share "
+        + (f"{out['busy_share']:.4f}" if kernels else "not measured (no "
+           "device events)") + f" [{card}]")
+    del params, box
+    torch.cuda.empty_cache()
+    return out
 
 
 def report_entry_points(r: dict, peaks: dict, wall: dict, card: str):
@@ -1523,12 +1673,25 @@ def main() -> int:
     train_rwkv_cfg = dataclasses.replace(rwkv_cfg, n_layers=RWKV_LAYERS)
     train_rwkv_rc = RunConfig(model=train_rwkv_cfg, shape=ShapeConfig(
         "train_rwkv_h100", TRAIN_4K_SEQ, TRAIN_4K_BATCH, "train"))
+    # whisper-large-v3: serving at full width and depth (8 requests of
+    # 1500 frames and a `WHISPER_PROMPT` prompt), training cut in depth
+    # (`WHISPER_LAYERS`, both stacks) and batch (`TRAIN_4K_BATCH` x
+    # `TRAIN_4K_SEQ` decoder tokens, 1500 frames a sample)
+    whisper_cfg = ARCHS["whisper-large-v3"]
+    whisper_rc = RunConfig(model=whisper_cfg, shape=ShapeConfig(
+        "serve_h100", WHISPER_PROMPT, 8, "prefill"))
+    train_whisper_cfg = dataclasses.replace(
+        whisper_cfg, n_layers=WHISPER_LAYERS, n_enc_layers=WHISPER_LAYERS)
+    train_whisper_rc = RunConfig(model=train_whisper_cfg, shape=ShapeConfig(
+        "train_whisper_h100", TRAIN_4K_SEQ, TRAIN_4K_BATCH, "train"),
+        attn_chunk=128)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     report: dict = {"serve_dense": {}, "serve_moe": {}, "serve_hybrid": {},
-                    "serve_rwkv": {}, "world_pipeline": {},
-                    "world_cross": {}, "world_elastic": {}, "cli": {},
-                    "quickstart": {}, "preempt": {}, "train_moe": {},
-                    "train_hybrid": {}, "train_rwkv": {}}
+                    "serve_rwkv": {}, "serve_whisper": {},
+                    "world_pipeline": {}, "world_cross": {},
+                    "world_elastic": {}, "cli": {}, "quickstart": {},
+                    "preempt": {}, "train_moe": {}, "train_hybrid": {},
+                    "train_rwkv": {}, "train_whisper": {}}
     counters = {"checksum": (cops, "launches"), "xor_delta": (dops, "launches"),
                 "quantize_int8": (qops, "launches"),
                 "dequantize_int8": (qops, "dequantize_launches")}
@@ -1549,6 +1712,9 @@ def main() -> int:
         "serve_rwkv": (lambda: phase_serve(rwkv_cfg, rwkv_rc, 8, root,
                                            report["serve_rwkv"]),
                        ("checksum", "xor_delta")),
+        "serve_whisper": (lambda: phase_serve(
+            whisper_cfg, whisper_rc, 8, root, report["serve_whisper"]),
+            ("checksum", "xor_delta")),
         "world_pipeline": (lambda: phase_world_pipeline(
             root, report["world_pipeline"]), ("xor_delta",)),
         "world_cross": (lambda: phase_world_cross(
@@ -1575,6 +1741,10 @@ def main() -> int:
             train_rwkv_cfg, train_rwkv_rc, root, report["train_rwkv"],
             "train_rwkv"),
             ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+        "train_whisper": (lambda: phase_train_wide(
+            train_whisper_cfg, train_whisper_rc, root,
+            report["train_whisper"], "train_whisper"),
+            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
     }
     by_phase, peaks, wall = {}, {}, {}
     for phase, (drive, _) in paths.items():
@@ -1596,8 +1766,12 @@ def main() -> int:
             + (f" (of them in socket rank processes: {elsewhere})"
                if elsewhere else ""))
     shutil.rmtree(root, ignore_errors=True)
-    for name in ("serve_dense", "serve_moe", "serve_hybrid", "serve_rwkv"):
+    for name in ("serve_dense", "serve_moe", "serve_hybrid", "serve_rwkv",
+                 "serve_whisper"):
         report[name]["peak"] = peaks[name]
+    t0 = time.monotonic()
+    measure_decode_clone(whisper_cfg, whisper_rc, 8, card)
+    log(f"decode_clone done in {time.monotonic() - t0:.1f} s")
 
     # phase 4: report
     steps = report["step_s"]
@@ -1622,11 +1796,15 @@ def main() -> int:
                  report["serve_hybrid"], card)
     report_serve("serve_rwkv", rwkv_cfg, rwkv_rc, 8, report["serve_rwkv"],
                  card)
+    report_serve("serve_whisper", whisper_cfg, whisper_rc, 8,
+                 report["serve_whisper"], card)
     report_worlds(report, peaks, wall, card)
     report_entry_points(report, peaks, wall, card)
     for name, c, r in (("train_moe", train_moe_cfg, train_moe_rc),
                        ("train_hybrid", hybrid_cfg, train_hybrid_rc),
-                       ("train_rwkv", train_rwkv_cfg, train_rwkv_rc)):
+                       ("train_rwkv", train_rwkv_cfg, train_rwkv_rc),
+                       ("train_whisper", train_whisper_cfg,
+                        train_whisper_rc)):
         report_train_wide(name, c, r, report[name], peaks[name], wall[name],
                           card)
     log(f"main-path launches, each phase from 0: {by_phase}")

@@ -1,16 +1,21 @@
-"""Attention: GQA projections, causal and sliding-window attention over
-a sequence, and single-token decode against a KV cache.
+"""Attention: GQA projections, causal, sliding-window and cross
+attention over a sequence, and single-token decode against a KV cache.
 
-Port of `repro.models.attention` (self-attention; cross attention is
-listed in ROADMAP.md).  The reference's flash and sliding-window
-attention are chunked pure jnp with custom VJPs (no Pallas kernel), so
-the port writes them as plain PyTorch ops under autograd, which stands
-in for the custom backward: f32 scores and softmax, probabilities
-rounded to the compute dtype before the value product as in the
-reference, GQA by grouping the query heads (K/V are never repeated).
-Both loop over blocks of `chunk` queries, so the score tensor of one
-call is O(chunk) rows, never (S, T); in training the per-block
-recompute of `transformer.forward` bounds what autograd keeps.
+Port of `repro.models.attention`.  The reference's flash and
+sliding-window attention are chunked pure jnp with custom VJPs (no
+Pallas kernel), so the port writes them as plain PyTorch ops: f32 scores
+and softmax, probabilities rounded to the compute dtype before the value
+product as in the reference, GQA by grouping the query heads (K/V are
+never repeated).  Both loop over blocks of `chunk` queries, each against
+its keys (all T keys for flash attention, so queries and keys may differ
+in length, as cross attention needs), so the score tensor of one call is
+O(chunk) rows, never (S, T).  Each block is one `_Attend`, the
+reference's custom VJP: it keeps its inputs, its output and the row
+log-sum-exp, and its backward recomputes the probabilities, so a
+block's backward, too, holds one block's scores at a time.  Queries,
+keys and values are laid out heads first, (B, K, ., hd), once per
+call, so that every product of a block is a batched matrix product
+over (B, K) that reads its operands where they lie.
 """
 from __future__ import annotations
 
@@ -100,46 +105,109 @@ def _scale(q):
         dtype=q.dtype, device=q.device)
 
 
-def _attend(qg, k, v, keep, dtype):
+def _heads_first(q, k, v):
+    """Scaled queries (B,S,H,hd) -> (B,K,S,G,hd) in their dtype, and k, v
+    (B,T,K,hd) -> (B,K,T,hd) f32, each copied once per call into the
+    layout in which every block's products are batched matrix products
+    over (B, K) with no further copy."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    qh = _group(q * _scale(q), K).permute(0, 2, 1, 3, 4).contiguous()
+    kh, vh = (x.transpose(1, 2).to(torch.float32,
+                                   memory_format=torch.contiguous_format)
+              for x in (k, v))
+    return qh, kh, vh
+
+
+def _block(qh, start: int, c: int, kh, vh, keep):
+    """Queries start..start+c of `qh` against the keys `kh`/`vh`
+    (B,K,t,hd), `keep` (c,t) bool or None -> (B,K,c,G,hd)."""
+    B, K, _, G, hd = qh.shape
+    q = qh[:, :, start:start + c].reshape(B, K, c * G, hd)
+    if keep is not None:
+        keep = keep[:, None, :].expand(c, G, keep.shape[1]).reshape(c * G, -1)
+    return _Attend.apply(q, kh, vh, keep).reshape(B, K, c, G, hd)
+
+
+def _heads_last(blocks):
+    """(B,K,c,G,hd) blocks in query order -> (B,S,H,hd)."""
+    o = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=2)
+    B, K, S, G, hd = o.shape
+    return o.permute(0, 2, 1, 3, 4).reshape(B, S, K * G, hd)
+
+
+def _scores(q, k, keep):
+    """f32 scores (B,K,M,t) of queries q (B,K,M,hd) against keys k
+    (B,K,t,hd), -1e9 where `keep` (M,t) is False."""
+    s = torch.matmul(q.to(torch.float32), k.transpose(-1, -2))
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
+    return s
+
+
+class _Attend(torch.autograd.Function):
     """One block of queries against its keys, one softmax pass.
 
-    qg: (B,c,K,G,hd) scaled queries; k, v: (B,t,K,hd) f32; keep: (c,t)
-    bool or None.  Scores and the normaliser are f32, the unnormalised
-    probabilities are rounded to `dtype` before the value product,
-    which accumulates in f32."""
-    s = torch.einsum("bckgh,btkh->bckgt", qg.to(torch.float32), k)
-    if keep is not None:
-        s = s.masked_fill(~keep[None, :, None, None, :], NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m).to(dtype)
-    l = p.to(torch.float32).sum(dim=-1)                     # (B,c,K,G)
-    acc = torch.einsum("bckgt,btkh->bckgh", p.to(torch.float32), v)
-    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
+    q: (B,K,M,hd) scaled queries in the compute dtype (M = c * G, a
+    block's rows of each KV head's group); k, v: (B,K,t,hd) f32; keep:
+    (M,t) bool or None.  Scores and the normaliser are f32, the
+    unnormalised probabilities are rounded to the compute dtype before
+    the value product, which accumulates in f32.  The backward is the
+    reference's `_flash_bwd` for this block: probabilities recomputed
+    from the saved log-sum-exp, delta = rowsum(dout * out), ds rounded
+    to the compute dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, keep):
+        dtype = q.dtype
+        s = _scores(q, k, keep)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m).to(dtype).to(torch.float32)
+        l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        out = (torch.matmul(p, v) / l).to(dtype)
+        ctx.save_for_backward(q, k, v, keep, out, m + torch.log(l))
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, keep, out, lse = ctx.saved_tensors
+        dtype = q.dtype
+        f32 = torch.float32
+        p = torch.exp(_scores(q, k, keep) - lse).to(dtype).to(f32)
+        do = dout.to(f32)
+        delta = (do * out.to(f32)).sum(dim=-1, keepdim=True)
+        dv = torch.matmul(p.transpose(-1, -2), do)
+        ds = (p * (torch.matmul(do, v.transpose(-1, -2)) - delta)).to(
+            dtype).to(f32)
+        dq = torch.matmul(ds, k).to(dtype)
+        dk = torch.matmul(ds.transpose(-1, -2), q.to(f32))
+        return dq, dk, dv, None
 
 
 def flash_attention(q, k, v, *, causal: bool, chunk: int = 128):
     """q: (B,S,H,hd); k,v: (B,T,K,hd) -> (B,S,H,hd).
 
-    Blocks of `chunk` queries, each against all T keys: the reference's
-    online softmax over key blocks is, in exact arithmetic, this single
-    pass over every key of a query row.  As there, q is scaled in its
-    own dtype.  Memory O(B * chunk * H * T) for the scores."""
-    B, S, H, hd = q.shape
-    K, T = k.shape[2], k.shape[1]
-    qg = _group(q * _scale(q), K)                           # (B,S,K,G,hd)
-    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    Blocks of `chunk` queries, each against all T keys (T may differ
+    from S: non-causal cross attention), or, causal, against the keys up
+    to its last query (the later keys would get probability exactly
+    0): the reference's online softmax over key blocks is, in exact
+    arithmetic, this single pass over every key of a query row.  As
+    there, q is scaled in its own dtype.  Memory O(B * chunk * H * T)
+    for the scores, forward and backward."""
+    S, T = q.shape[1], k.shape[1]
+    qh, kh, vh = _heads_first(q, k, v)
     chunk = max(1, min(chunk, S))
     tpos = torch.arange(T, device=q.device)
     outs = []
     for i in range(0, S, chunk):
         c = min(chunk, S - i)
-        keep = None
+        t, keep = T, None
         if causal:
+            t = min(T, i + c)
             keep = (torch.arange(i, i + c, device=q.device)[:, None]
-                    >= tpos[None, :])
-        outs.append(_attend(qg[:, i:i + c], kf, vf, keep, q.dtype))
-    o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return o.reshape(B, S, H, hd)
+                    >= tpos[None, :t])
+        outs.append(_block(qh, i, c, kh[:, :, :t], vh[:, :, :t], keep))
+    return _heads_last(outs)
 
 
 def _fit_chunk(total: int, chunk: int) -> int:
@@ -161,21 +229,17 @@ def sliding_window_attention(q, k, v, *, window: int, chunk: int = 128):
     """Causal SWA: O(S * window) compute, O(chunk * (window + chunk))
     scores per block.  k/v are padded by `window` in front; block i of
     queries attends to its `window + chunk` key span."""
-    B, S, H, hd = q.shape
-    K = k.shape[2]
+    S = q.shape[1]
     chunk = _fit_chunk(S, chunk)
     span = window + chunk
-    qg = _group(q * _scale(q), K)
-    kp = F.pad(k.to(torch.float32), (0, 0, 0, 0, window, 0))
-    vp = F.pad(v.to(torch.float32), (0, 0, 0, 0, window, 0))
+    qh, kh, vh = _heads_first(q, k, v)
+    kh, vh = (F.pad(x, (0, 0, window, 0)) for x in (kh, vh))
     outs = []
     for start in range(0, S, chunk):
         keep = _swa_mask(start, window, chunk, span, q.device)
-        outs.append(_attend(qg[:, start:start + chunk],
-                            kp[:, start:start + span],
-                            vp[:, start:start + span], keep, q.dtype))
-    o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return o.reshape(B, S, H, hd)
+        outs.append(_block(qh, start, chunk, kh[:, :, start:start + span],
+                           vh[:, :, start:start + span], keep))
+    return _heads_last(outs)
 
 
 # ==========================================================================

@@ -71,6 +71,18 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n_pos: int, d_model: int, device=None):
+    """(n_pos, d_model) f32 absolute positions, [sin | cos] of
+    pos * exp(-log(1e4) * i / half) (the enc-dec encoder's)."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    half = d_model // 2
+    log_base = torch.log(torch.tensor(10_000.0, device=device))
+    div = torch.exp(-log_base * torch.arange(half, dtype=torch.float32,
+                                             device=device) / half)
+    ang = pos * div
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # --------------------------------------------------------------------------
 # Gated MLP (SwiGLU)
 # --------------------------------------------------------------------------

@@ -1,35 +1,44 @@
-"""Model assembly for dense, MoE, hybrid-SSM and attention-free (RWKV-6)
-decoders: init, forward, forward_loss, and the serving entry points
-prefill and decode_step.
+"""Model assembly for dense, MoE, hybrid-SSM, attention-free (RWKV-6)
+and encoder-decoder models: init, forward, forward_loss, and the
+serving entry points prefill and decode_step.
 
-Port of `repro.models.transformer` for the dense, moe, hybrid and ssm
-(rwkv) families (GQA, optional QKV bias, RoPE, SwiGLU or routed experts,
-full causal or sliding-window attention, tied or untied head; hybrid
-blocks run Mamba-2-style SSM heads, `repro_torch.models.mamba`, beside
-attention on the same normed input and average the two; rwkv blocks are
-a time-mix and a channel-mix, `repro_torch.models.rwkv`, with no
-attention and no K/V cache).  Parameter names, shapes, dtypes and the
-logical-axes trees (params and decode state) are the reference's:
-blocks are stacked on a leading (L, ...) layer axis and heads are stored
-padded (`cfg.n_heads_padded`, `cfg.n_kv_heads_padded`), so every
-flattened leaf path (`params/blocks/attn/wq`, `params/blocks/tm/wr`,
-`decode/layers/k`, `decode/layers/ssm`, `decode/layers/la`, ...) is the
-same in both packages and images move between them.  The enc-dec and
-vision cross-attention families raise `NotImplementedError`; ROADMAP.md
-queues them.
+Port of `repro.models.transformer` for the dense, moe, hybrid, ssm
+(rwkv) and audio (enc-dec) families (GQA, optional QKV bias, RoPE,
+SwiGLU or routed experts, full causal or sliding-window attention, tied
+or untied head; hybrid blocks run Mamba-2-style SSM heads,
+`repro_torch.models.mamba`, beside attention on the same normed input
+and average the two; rwkv blocks are a time-mix and a channel-mix,
+`repro_torch.models.rwkv`, with no attention and no K/V cache; enc-dec
+models run a non-causal encoder over stub frame embeddings plus
+sinusoidal positions, and each decoder block adds cross attention to
+the encoder's output between self-attention and the MLP).  Parameter
+names, shapes, dtypes and the logical-axes trees (params and decode
+state) are the reference's: blocks are stacked on a leading (L, ...)
+layer axis and heads are stored padded (`cfg.n_heads_padded`,
+`cfg.n_kv_heads_padded`), so every flattened leaf path
+(`params/blocks/attn/wq`, `params/blocks/xattn/wk`,
+`params/enc_blocks/mlp/wi`, `params/blocks/tm/wr`, `decode/layers/k`,
+`decode/layers/xk`, `decode/layers/ssm`, `decode/layers/la`, ...) is the
+same in both packages and images move between them.  The vision
+cross-attention family raises `NotImplementedError`; ROADMAP.md queues
+it.
 
 Decode is functional, as the reference's: `decode_step` returns a new
 state and leaves the one it was given as it was (a live image taken
-between two steps depends on that).  It copies the stacked caches once
-per step and writes the new token's K/V into that copy at a host
-integer slot, a hybrid block's new SSM state and conv tail, and an rwkv
-block's new `la` state and token-shift states, over its layer's slices
-of the copy; `pos` is read to the host once per step.
+between two steps depends on that).  It copies the stacked caches that
+a step writes once per step and writes the new token's K/V into that
+copy at a host integer slot, a hybrid block's new SSM state and conv
+tail, and an rwkv block's new `la` state and token-shift states, over
+its layer's slices of the copy; the cross K/V (`xk`, `xv`), written
+once by prefill, pass into the new state uncopied (the reference's
+`dict(lcache)`).  `pos` is read to the host once per step.
 
-Remat: with `rc.remat_policy` other than "none", each block runs under
-`torch.utils.checkpoint` (non-reentrant) and saves only its input, the
-reference's "full" policy; the port has no per-name save policies, so
-"dots" and "comm" act as "full".
+Remat: with `rc.remat_policy` other than "none", each block (encoder
+blocks too) runs under `torch.utils.checkpoint` (non-reentrant) and
+saves only its inputs, the reference's "full" policy: a decoder block's
+inputs are its stream and the encoder's output, so the gradient of all
+its cross attentions reaches the encoder.  The port has no per-name save
+policies, so "dots" and "comm" act as "full".
 """
 from __future__ import annotations
 
@@ -50,15 +59,12 @@ from repro_torch.models import rwkv as rwkv_mod
 
 def _require_ported(cfg: ModelConfig) -> None:
     """Dense, MoE, hybrid-SSM and rwkv decoders, with or without
-    sliding-window attention, are ported; the other families are not
-    yet."""
-    other = [name for name, on in (
-        ("enc-dec", cfg.enc_dec),
-        ("vision cross-attention", cfg.cross_attn_every)) if on]
-    if other:
+    sliding-window attention, and enc-dec models are ported; vision
+    cross-attention is not yet."""
+    if cfg.cross_attn_every:
         raise NotImplementedError(
-            f"{cfg.arch_id}: {', '.join(other)} is not ported to repro_torch "
-            f"yet (ROADMAP.md, section A)")
+            f"{cfg.arch_id}: vision cross-attention is not ported to "
+            f"repro_torch yet (ROADMAP.md, section A)")
 
 
 # ==========================================================================
@@ -78,10 +84,11 @@ def moe_split(cfg: ModelConfig, model_axis: int = 16) -> int:
     return model_axis // g
 
 
-def _init_dense_blocks(gen, cfg: ModelConfig, device):
-    """Stacked (L, ...) dense, MoE or hybrid blocks: the reference's
+def _init_dense_blocks(gen, cfg: ModelConfig, device, n: int,
+                       cross: bool):
+    """`n` stacked (L, ...) dense, MoE or hybrid blocks, with cross
+    attention (`lnx`, `xattn`: no QKV bias) if `cross`: the reference's
     vmapped per-layer init, drawn as one tensor per leaf."""
-    n = cfg.n_layers
     params: Dict[str, Any] = {"ln1": L._norm_init((n, cfg.d_model), device),
                               "ln2": L._norm_init((n, cfg.d_model), device)}
     logical: Dict[str, Any] = {"ln1": (None,), "ln2": (None,)}
@@ -92,6 +99,12 @@ def _init_dense_blocks(gen, cfg: ModelConfig, device):
         params["mamba"], logical["mamba"] = mam.init_mamba(
             gen, cfg.d_model, cfg.ssm_state, cfg.ssm_expand, device=device,
             stack=n)
+    if cross:
+        params["lnx"] = L._norm_init((n, cfg.d_model), device)
+        logical["lnx"] = (None,)
+        params["xattn"], logical["xattn"] = attn.init_attention(
+            gen, cfg.d_model, cfg.n_heads_padded, cfg.n_kv_heads_padded,
+            cfg.head_dim, device=device, stack=n)
     if cfg.moe is not None:
         params["moe"], logical["moe"] = moe_mod.init_moe(
             gen, cfg.d_model, cfg.d_ff, cfg.moe.num_experts, moe_split(cfg),
@@ -135,8 +148,17 @@ def init_params(cfg: ModelConfig, generator, device) -> Tuple[Dict, Dict]:
         device=device)
     params["ln_f"] = L._norm_init((cfg.d_model,), device)
     logical["ln_f"] = (None,)
-    init_blocks = _init_rwkv_blocks if cfg.rwkv else _init_dense_blocks
-    params["blocks"], logical["blocks"] = init_blocks(generator, cfg, device)
+    if cfg.rwkv:
+        params["blocks"], logical["blocks"] = _init_rwkv_blocks(
+            generator, cfg, device)
+    else:
+        params["blocks"], logical["blocks"] = _init_dense_blocks(
+            generator, cfg, device, cfg.n_layers, cross=cfg.enc_dec)
+    if cfg.enc_dec:
+        params["enc_blocks"], logical["enc_blocks"] = _init_dense_blocks(
+            generator, cfg, device, cfg.n_enc_layers, cross=False)
+        params["enc_ln_f"] = L._norm_init((cfg.d_model,), device)
+        logical["enc_ln_f"] = (None,)
     return params, logical
 
 
@@ -158,6 +180,18 @@ def _self_attention_seq(cfg: ModelConfig, rc: RunConfig, p, h, positions,
     return attn.out_proj(p, o), (k, v)
 
 
+def _cross_attention_seq(cfg, rc, p, h, enc_out):
+    """Decoder queries (B,S) against the encoder's keys (B,Te): no RoPE,
+    no bias, non-causal.  Returns (out, (k, v)), k/v (B,Te,K,hd)."""
+    dt = h.dtype
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(dt))
+    o = attn.flash_attention(q, k, v, causal=False, chunk=rc.attn_chunk)
+    o = o * attn.head_mask(cfg, o.device)[None, None, :, None].to(o.dtype)
+    return attn.out_proj(p, o), (k, v)
+
+
 def _ffn(cfg, rules, p, h):
     """The block's MLP or routed experts -> (y, aux)."""
     if "moe" in p:
@@ -168,8 +202,10 @@ def _ffn(cfg, rules, p, h):
     return L.mlp_apply(p["mlp"], h), {}
 
 
-def _mixer_block_seq(cfg, rc, rules, p, x, positions, causal=True):
-    """One dense/MoE/hybrid block over a full sequence.
+def _mixer_block_seq(cfg, rc, rules, p, x, positions, enc_out=None,
+                     causal=True):
+    """One dense/MoE/hybrid block over a full sequence; a block with
+    `xattn` attends to `enc_out` (B,Te,d) after self-attention.
 
     Returns (x, aux, cache): cache holds what prefill must keep."""
     cache = {}
@@ -181,6 +217,11 @@ def _mixer_block_seq(cfg, rc, rules, p, x, positions, causal=True):
             p["mamba"], h, chunk=rc.la_chunk)
         a_out = (a_out + m_out) * 0.5
     x = x + a_out
+    if "xattn" in p and enc_out is not None:
+        hx = L.rms_norm(x, p["lnx"], cfg.norm_eps)
+        x_out, (cache["xk"], cache["xv"]) = _cross_attention_seq(
+            cfg, rc, p["xattn"], hx, enc_out)
+        x = x + x_out
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _ffn(cfg, rules, p, h2)
     x = x + y
@@ -209,45 +250,77 @@ def _layer_params(blocks, i: int):
     return blocks[i]
 
 
+def _remat(rc, fn, *args):
+    """fn(*args), under the per-block checkpoint where autograd records
+    and `rc.remat_policy` asks for remat; every tensor the block reads
+    is among `args`."""
+    if rc.remat_policy == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _encode(params, cfg, rc, rules, frames):
+    """Encoder over stub frame embeddings (B,Te,d), given in the compute
+    dtype: sinusoidal positions cast to it and added, non-causal blocks
+    without cross attention, then `enc_ln_f`."""
+    Te = frames.shape[1]
+    x = frames + L.sinusoidal_positions(Te, cfg.d_model,
+                                        frames.device).to(frames.dtype)
+    positions = torch.arange(Te, device=frames.device)
+    blocks = _unbind_layers(params["enc_blocks"])
+
+    def block(x, p):
+        return _mixer_block_seq(cfg, rc, rules, p, x, positions, None,
+                                causal=False)[0]
+
+    for i in range(cfg.n_enc_layers):
+        x = _remat(rc, block, x, _layer_params(blocks, i))
+    return L.rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
+
+
 def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
             want_cache: bool = False):
-    """Full-sequence forward.  batch: tokens (B,S).
+    """Full-sequence forward.  batch: tokens (B,S) [+ frames (B,Te,d)].
 
     Returns (hidden (B,S,d), aux-losses, caches | None); caches are
-    {"k", "v"} stacked (L, B, T, K, hd), and for hybrid blocks also
-    {"ssm"} (L, B, H, N, hd) f32 and {"conv"} (L, B, 3, d_in); for rwkv
-    blocks {"la"} (L, B, H, hd, hd) f32 and {"shift_a", "shift_c"}
-    (L, B, d)."""
+    {"k", "v"} stacked (L, B, T, K, hd), for enc-dec models also the
+    cross K/V {"xk", "xv"} (L, B, Te, K, hd), for hybrid blocks {"ssm"}
+    (L, B, H, N, hd) f32 and {"conv"} (L, B, 3, d_in); for rwkv blocks
+    {"la"} (L, B, H, hd, hd) f32 and {"shift_a", "shift_c"} (L, B, d)."""
     _require_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     dtype = getattr(torch, rc.dtype)
     x = L.embed_apply(params["embed"], tokens, dtype)
     positions = torch.arange(S, device=tokens.device)
+    enc_out = None
+    if cfg.enc_dec:
+        enc_out = _encode(params, cfg, rc, rules, batch["frames"].to(dtype))
     # unbind once per stacked leaf: its backward stacks the L layer
     # grads in one pass instead of L full-size scatters
     blocks = _unbind_layers(params["blocks"])
 
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def block(x, p):
+    def block(x, p, enc_out):
         if cfg.rwkv:
             x, aux, cache = _rwkv_block_seq(cfg, rc, p, x)
         else:
-            x, aux, cache = _mixer_block_seq(cfg, rc, rules, p, x, positions)
+            x, aux, cache = _mixer_block_seq(cfg, rc, rules, p, x, positions,
+                                             enc_out)
         return x, aux.get("moe_aux", zero), cache
 
     moe_aux = zero
     caches = []
     for i in range(cfg.n_layers):
         p = _layer_params(blocks, i)
-        if want_cache or rc.remat_policy == "none":
-            x, a, cache = block(x, p)
-            if want_cache:
-                caches.append(cache)
+        if want_cache:
+            x, a, cache = block(x, p, enc_out)
+            caches.append(cache)
         else:
-            x, a = checkpoint(lambda x, p: block(x, p)[:2], x, p,
-                              use_reentrant=False, preserve_rng_state=False)
+            x, a = _remat(rc, lambda x, p, e: block(x, p, e)[:2], x, p,
+                          enc_out)
         moe_aux = moe_aux + a
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     stacked = None
@@ -295,9 +368,10 @@ def init_decode_state(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig,
                       device=None):
     """Zero-initialized decode caches for a (arch, shape) cell, layout
     (L, B, T, K, hd), plus for hybrid blocks the SSM state (L, B, H, N,
-    d_in/H) f32 and the conv tail (L, B, 3, d_in); for rwkv blocks no
-    K/V, but the `la` state (L, B, H, hd, hd) f32 and the token-shift
-    states (L, B, d).  On `device` (None -> cuda, or raises)."""
+    d_in/H) f32 and the conv tail (L, B, 3, d_in), for enc-dec models the
+    cross K/V (L, B, Te, K, hd); for rwkv blocks no K/V, but the `la`
+    state (L, B, H, hd, hd) f32 and the token-shift states (L, B, d).  On
+    `device` (None -> cuda, or raises)."""
     _require_ported(cfg)
     device = resolve_device(device)
     Lh, B = cfg.n_layers, shape.global_batch
@@ -323,6 +397,10 @@ def init_decode_state(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig,
                                     dtype=torch.float32, device=device)
         layers["conv"] = torch.zeros((Lh, B, mam.CONV_W - 1, d_in), dtype=dt,
                                      device=device)
+    if cfg.enc_dec:
+        xkv = (Lh, B, cfg.enc_positions, cfg.n_kv_heads_padded, cfg.head_dim)
+        layers["xk"] = torch.zeros(xkv, dtype=dt, device=device)
+        layers["xv"] = torch.zeros(xkv, dtype=dt, device=device)
     return {"pos": pos, "layers": layers}
 
 
@@ -339,13 +417,16 @@ def decode_state_logical(cfg: ModelConfig):
     if cfg.ssm_state:
         lay["ssm"] = (None, "batch", "heads", None, None)
         lay["conv"] = (None, "batch", None, "d_inner")
+    if cfg.enc_dec:
+        lay["xk"] = lay["xv"] = kv
     return {"pos": (), "layers": lay}
 
 
 def _decode_mixer_block(cfg, rc, rules, p, x, lcache, pos: int):
     """One block, one token.  Writes the token's K/V, and a hybrid
     block's new SSM state and conv tail, into `lcache` (this layer's
-    slices of the step's own copy of the caches) in place."""
+    slices of the step's own copy of the caches) in place; an enc-dec
+    block's cross step reads its `xk`/`xv` (all Te positions)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
@@ -362,6 +443,14 @@ def _decode_mixer_block(cfg, rc, rules, p, x, lcache, pos: int):
         lcache["ssm"].copy_(ssm)
         a_out = (a_out + m_out) * 0.5
     x = x + a_out
+    if "xattn" in p and "xk" in lcache:
+        hx = L.rms_norm(x, p["lnx"], cfg.norm_eps)
+        qx = torch.einsum("bsd,dhk->bshk", hx, p["xattn"]["wq"].to(hx.dtype))
+        Te = lcache["xk"].shape[1]
+        ox = attn.decode_attention(qx, lcache["xk"], lcache["xv"], Te - 1)
+        ox = ox * attn.head_mask(cfg, ox.device)[None, None, :, None].to(
+            ox.dtype)
+        x = x + attn.out_proj(p["xattn"], ox)
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, _ = _ffn(cfg, rules, p, h2)
     return x + y
@@ -395,15 +484,21 @@ def _logits(params, cfg, x):
     return logits
 
 
+# decode-state leaves no decode step writes: passed on uncopied
+_READ_ONLY = ("xk", "xv")
+
+
 def decode_step(params, cfg: ModelConfig, rc: RunConfig, rules, state, token):
     """One decode step. token: (B,1) int -> (logits (B,1,V), new state).
 
-    The given state is left as it was."""
+    The given state is left as it was: the leaves the step writes are
+    copied first, and the cross K/V are shared with the new state."""
     _require_ported(cfg)
     dtype = getattr(torch, rc.dtype)
     x = L.embed_apply(params["embed"], token, dtype)
     pos = int(state["pos"])              # the step's one host copy of pos
-    caches = {key: c.clone() for key, c in state["layers"].items()}
+    caches = {key: c if key in _READ_ONLY else c.clone()
+              for key, c in state["layers"].items()}
     for i in range(cfg.n_layers):
         p = _layer_params(params["blocks"], i)
         lcache = {key: c[i] for key, c in caches.items()}
@@ -433,8 +528,8 @@ def prefill(params, cfg: ModelConfig, rc: RunConfig, rules, batch):
     logits = _logits(params, cfg, x[:, -1])
     if not cfg.rwkv and not cfg.sliding_window:
         # full-attention KV caches need headroom for subsequent decodes
-        # (the time axis is ndim-3 of (L, B, T, K, hd)); the SSM state,
-        # conv tail and rwkv states are fixed-size
+        # (the time axis is ndim-3 of (L, B, T, K, hd)); the cross K/V,
+        # SSM state, conv tail and rwkv states are fixed-size
         for key in ("k", "v"):
             layers[key] = torch.nn.functional.pad(
                 layers[key], (0, 0, 0, 0, 0, rc.decode_margin))

@@ -4,8 +4,9 @@ a bit-identical resume through MANARuntime, and serving with live
 decode-state images (bit-identical continuation after a delta-chain
 restore, the SWA ring wrap, MoE capacity drops, the checksum and XOR
 launches of a decode-state image, reduced hymba with a padded KV head
-and reduced rwkv6-3b with a padded head: a train step and a decode step
-against the CPU and its decode-state image), and the wire codec and worlds with
+and reduced rwkv6-3b with a padded head and reduced whisper-large-v3
+with padded KV heads: a train step and a decode step against the CPU and
+its decode-state image), and the wire codec and worlds with
 rank state on the card (`SnapshotCodec` blobs from CUDA tensors equal
 those from CPU tensors, `decode_chain(device="cuda")` equals the host
 decode, a 2-rank socket world of card shards commits and restores).
@@ -493,6 +494,81 @@ def test_rwkv_padded_train_step_and_decode_image_on_card(dev, tmp_path):
     for key in sg["layers"]:
         assert torch.equal(got["decode"]["layers"][key], sg["layers"][key])
     assert got["decode"]["layers"]["la"].device.type == "cuda"
+
+
+def test_encdec_padded_train_step_and_decode_image_on_card(dev, tmp_path):
+    """Reduced whisper-large-v3 with KV heads padded without grouping (5
+    over 5 stored as 8 over 8, as the full-width config stores 20 as 32):
+    a train step's loss and every gradient on the card agree with the CPU
+    (float32; the encoder's gradients, which every cross attention feeds,
+    to 1e-3 of their norm, as tests/test_torch_model.py holds them);
+    prefill and a decode step on the card agree with the CPU, the cross
+    K/V included; a decode-state image digests its 5 leaves (checksum), a
+    delta image XORs them (the cross K/V's delta is all zero bytes), and
+    the restore gives the live state back bit for bit."""
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.training.step import make_serve_steps
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = reduced_config(ARCHS["whisper-large-v3"], n_heads=5, n_kv_heads=5,
+                         head_dim=8, pad_to=8)
+    assert cfg.padded_heads() == (8, 1)
+    rc = RunConfig(model=cfg, shape=ShapeConfig("s", 64, 2, "train"),
+                   loss_chunk=32, attn_chunk=16, dtype="float32")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(9)
+    params, _ = T.init_params(cfg, gen, "cpu")
+    batch = SyntheticDataset(cfg, rc.shape, seed=9).get_batch(0)
+
+    def loss_and_grads(device):
+        leaves = [p.to(device).requires_grad_(True)
+                  for p in tree_leaves(params)]
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        loss, _ = T.forward_loss(tree_unflatten(params, leaves), cfg, rc,
+                                 None, b)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    lg, gg = loss_and_grads(dev)
+    lc, gc = loss_and_grads("cpu")
+    _f32_close(lg, lc)
+    for path, a, b in zip(_leaf_paths(params), gg, gc):
+        if path.startswith("enc_blocks/"):
+            a, b = a.cpu().double(), b.double()
+            assert float((a - b).norm() / b.norm()) < 1e-3, path
+        else:
+            _f32_close(a, b)
+
+    prefill, serve = make_serve_steps(cfg, rc)
+    toks = torch.from_numpy(batch["tokens"])
+    frames = torch.from_numpy(batch["frames"])
+    card = tree_map(lambda t: t.to(dev), params)
+    _, sc = prefill(params, {"tokens": toks, "frames": frames})
+    _, sg = prefill(card, {"tokens": toks.to(dev), "frames": frames.to(dev)})
+    mgr = CheckpointManager(str(tmp_path), delta_keys=("decode",), device=dev)
+    c0, x0 = cops.launches, dops.launches
+    mgr.save(1, {"decode": sg}, {"decode": T.decode_state_logical(cfg)})
+    lc, sc = serve(params, sc, toks[:, :1])
+    lg, sg = serve(card, sg, toks[:, :1].to(dev))
+    _f32_close(lg, lc)
+    assert sorted(sg["layers"]) == ["k", "v", "xk", "xv"]
+    for key in sg["layers"]:
+        _f32_close(sg["layers"][key], sc["layers"][key])
+    mgr.save(2, {"decode": sg}, {"decode": T.decode_state_logical(cfg)})
+    assert cops.launches == c0 + 15 and dops.launches == x0 + 5
+    got, _ = mgr.restore(2)
+    for key in sg["layers"]:
+        assert torch.equal(got["decode"]["layers"][key], sg["layers"][key])
+    assert got["decode"]["layers"]["xk"].device.type == "cuda"
+
+
+def _leaf_paths(tree, prefix=""):
+    """The "a/b/c" paths of a tree's leaves, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,8 @@
 (`python -m repro_torch.launch.train`), the quickstart and preemption
 twins, and the runtime's process-wide footprint (the SIGUSR1 handler,
 the deterministic-algorithms switch).  Reduced qwen2-0.5b, and reduced
-hymba-1.5b and rwkv6-3b for a fresh / resumed / uninterrupted CLI run
-each, B 2 x S 64,
+hymba-1.5b, rwkv6-3b and whisper-large-v3 for a fresh / resumed /
+uninterrupted CLI run each, B 2 x S 64,
 `--device cpu`; the CLI and the quickstart run in subprocesses, the
 independent ones side by side, shared through a module-scoped fixture.
 
@@ -42,6 +42,7 @@ PORT = [sys.executable, "-m", "repro_torch.launch.train", *FLAGS,
         "--device", "cpu"]
 HYBRID = [*PORT[:4], "hymba-1.5b", *PORT[5:]]
 RWKV = [*PORT[:4], "rwkv6-3b", *PORT[5:]]
+WHISPER = [*PORT[:4], "whisper-large-v3", *PORT[5:]]
 REFERENCE = [sys.executable, "-m", "repro.launch.train", *FLAGS]
 ENV = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
 
@@ -87,6 +88,8 @@ def runs(tmp_path_factory):
         "hybrid6": _start(HYBRID + ["--steps", "6"], d / "h6"),
         "rwkv_fresh": _start(RWKV + ["--steps", "4"], d / "w"),
         "rwkv6": _start(RWKV + ["--steps", "6"], d / "w6"),
+        "whisper_fresh": _start(WHISPER + ["--steps", "4"], d / "e"),
+        "whisper6": _start(WHISPER + ["--steps", "6"], d / "e6"),
     }
     out = {k: _finish(p) for k, p in first.items()}
     second = {
@@ -101,6 +104,8 @@ def runs(tmp_path_factory):
         "hybrid_resume": _start(HYBRID + ["--steps", "2", "--resume"],
                                 d / "h"),
         "rwkv_resume": _start(RWKV + ["--steps", "2", "--resume"], d / "w"),
+        "whisper_resume": _start(WHISPER + ["--steps", "2", "--resume"],
+                                 d / "e"),
     }
     out.update({k: _finish(p) for k, p in second.items()})
     out["dir"] = d
@@ -155,6 +160,26 @@ def test_cli_rwkv_resume_repeats_the_uninterrupted_run(runs):
         arrays = json.load(f)["arrays"]
     assert arrays["params/blocks/tm/w0"]["base_step"] == 2
     assert arrays["opt/m/blocks/cm/wck"]["dtype"] == "float32"
+
+
+def test_cli_encdec_resume_repeats_the_uninterrupted_run(runs):
+    """`--arch whisper-large-v3 --reduced`: 4 steps fresh, `--resume` for
+    2; the resumed losses equal the uninterrupted run's steps 4-5, and
+    the images hold the encoder and cross-attention leaves as XOR
+    deltas."""
+    lines, resumed = runs["whisper_resume"]
+    assert WHISPER[3:5] == ["--arch", "whisper-large-v3"]
+    assert runs["whisper_fresh"][0][0] == "initialized fresh"
+    assert lines[0] == "resumed from step 4"
+    assert [h["step"] for h in resumed] == [4, 5]
+    assert _losses(resumed) == _losses(runs["whisper6"][1])
+    assert all(math.isfinite(h["loss"]) for h in runs["whisper6"][1])
+    with open(os.path.join(runs["dir"], "e", "ckpt_0000000004",
+                           "manifest.json")) as f:
+        arrays = json.load(f)["arrays"]
+    assert arrays["params/enc_blocks/attn/wq"]["base_step"] == 2
+    assert arrays["params/blocks/xattn/wk"]["base_step"] == 2
+    assert arrays["opt/v/enc_ln_f"]["dtype"] == "float32"
 
 
 def test_cli_socket_transport_and_int8_moments_resume(runs):

@@ -1,11 +1,14 @@
-"""The port's dense, hybrid-SSM and RWKV-6 models (layers, GQA flash
-attention, loss, gradients) against the JAX package at reduced
-qwen2-0.5b, reduced hymba-1.5b and reduced rwkv6-3b, each unpadded and
-with padded heads masked (qwen2 with `pad_to=16`; hymba padded as 25
-heads over 5 KV heads, stored as 48 over 6, the padding of the
-full-width config, so a dummy KV group runs; rwkv as 5 heads stored as
-6, padding without grouping as rwkv6-3b's 40 heads are stored as 48,
-with `pad_to=2` so that the 256-entry vocabulary stays unpadded).  Both
+"""The port's dense, hybrid-SSM, RWKV-6 and encoder-decoder models
+(layers, GQA flash attention, loss, gradients) against the JAX package
+at reduced qwen2-0.5b, reduced hymba-1.5b, reduced rwkv6-3b and reduced
+whisper-large-v3, each unpadded and with padded heads masked (qwen2 with
+`pad_to=16`; hymba padded as 25 heads over 5 KV heads, stored as 48 over
+6, the padding of the full-width config, so a dummy KV group runs; rwkv
+as 5 heads stored as 6, padding without grouping as rwkv6-3b's 40 heads
+are stored as 48, with `pad_to=2` so that the 256-entry vocabulary
+stays unpadded; whisper as 5 heads over 5 KV heads stored as 8 over 8,
+KV heads padded without grouping as the full-width config's 20 are
+stored as 32, in self and cross attention, encoder and decoder).  Both
 packages get the same inputs and the same parameters: the JAX init,
 carried over with `repro_torch.convert.state_from_numpy`.
 
@@ -22,6 +25,17 @@ Tolerances:
     QKV biases) either stack's bf16 gradients sit 20-27% in norm from the
     f32 gradients, and so from each other; the port's distance from the
     f32 gradient must stay within 1.25x the reference's, plus 1e-2.
+  * reduced whisper-large-v3 is held to the reference's own accuracy
+    where that is coarser than the rules above.  Its encoder gradients
+    in float32 move by up to 1.8e-4 of their norm, with elements past
+    the float32 rule, when the reference alone changes `attn_chunk` from
+    8 to 12 (a sum of cancelling terms through every cross attention);
+    there the port's must agree with the reference's to 1e-3 of their
+    norm (about 5x that spread).  Unpadded, its bf16
+    gradients sit 76-103% (median over leaves, four init seeds) from
+    the f32 gradients in the reference (zero would sit at 100%); on a
+    leaf where the reference's bf16 gradient is 50% or more from the
+    f32 one, the port's must stay within 1.5x the reference's distance.
 """
 import jax
 import jax.numpy as jnp
@@ -83,16 +97,21 @@ def _tnp(x):
 HYMBA_PAD = dict(n_heads=25, n_kv_heads=5, head_dim=8, pad_to=16)
 # reduced rwkv6-3b with padded heads and no grouping: 5 heads stored as 6
 RWKV_PAD = dict(n_heads=5, n_kv_heads=5, head_dim=8, pad_to=2)
+# reduced whisper-large-v3 with KV heads padded and no grouping: 5 over 5
+# stored as 8 over 8
+WHISPER_PAD = dict(n_heads=5, n_kv_heads=5, head_dim=8, pad_to=8)
 
 
 @pytest.fixture(scope="module", params=[
     ("qwen2-0.5b", dict(pad_to=1)), ("qwen2-0.5b", dict(pad_to=16)),
     ("hymba-1.5b", {}), ("hymba-1.5b", HYMBA_PAD),
-    ("rwkv6-3b", {}), ("rwkv6-3b", RWKV_PAD)],
-    ids=["unpadded", "pad16", "hymba", "hymba-pad16", "rwkv", "rwkv-pad"])
+    ("rwkv6-3b", {}), ("rwkv6-3b", RWKV_PAD),
+    ("whisper-large-v3", {}), ("whisper-large-v3", WHISPER_PAD)],
+    ids=["unpadded", "pad16", "hymba", "hymba-pad16", "rwkv", "rwkv-pad",
+         "whisper", "whisper-pad"])
 def model(request):
     """(jax cfg, port cfg, numpy params) for reduced qwen2-0.5b,
-    hymba-1.5b or rwkv6-3b."""
+    hymba-1.5b, rwkv6-3b or whisper-large-v3."""
     arch, overrides = request.param
     jcfg = jreduced(JARCHS[arch], **overrides)
     cfg = reduced_config(ARCHS[arch], **overrides)
@@ -121,6 +140,8 @@ def model(request):
         assert (cfg.n_heads_padded, cfg.n_kv_heads_padded) == (48, 6)
     if arch == "rwkv6-3b" and overrides:
         assert (cfg.n_heads_padded, cfg.vocab_padded) == (6, cfg.vocab_size)
+    if arch == "whisper-large-v3" and overrides:
+        assert cfg.padded_heads() == (8, 1)
     return jcfg, cfg, params
 
 
@@ -280,7 +301,11 @@ def test_forward_loss_and_grads_match_reference(model, dtype):
     assert sorted(jflat) == tflat
     if dtype == "float32":
         for path, g in zip(tflat, grads):
-            _close(_tnp(g), jflat[path], dtype)
+            if cfg.enc_dec and path.startswith("enc_blocks/"):
+                # norm-relative (see the module docstring)
+                assert _rel(_tnp(g), jflat[path]) < 1e-3, path
+            else:
+                _close(_tnp(g), jflat[path], dtype)
     else:
         _, g32 = jgrad(JRunConfig(model=jcfg, shape=jrc.shape, loss_chunk=16,
                                   attn_chunk=8, dtype="float32"))
@@ -288,13 +313,21 @@ def test_forward_loss_and_grads_match_reference(model, dtype):
         for path, g in zip(tflat, grads):
             ours = _rel(_tnp(g), exact[path])
             theirs = _rel(jflat[path], exact[path])
-            assert ours <= 1.25 * theirs + 1e-2, (path, ours, theirs)
+            if cfg.enc_dec and theirs >= 0.5:
+                # the reference's bf16 gradient is at most twice as close
+                # to the f32 one as zero is (see the module docstring)
+                assert ours <= 1.5 * theirs, (path, ours, theirs)
+            else:
+                assert ours <= 1.25 * theirs + 1e-2, (path, ours, theirs)
     if cfg.n_heads_padded != cfg.n_heads:
         # padded heads get exactly zero gradient in both packages
-        wq = dict(zip(tflat, grads))[
-            "blocks/tm/wr" if cfg.rwkv else "blocks/attn/wq"]
         dead = _tnp(attn.head_mask(cfg)) == 0
-        assert not _tnp(wq)[:, :, dead].any()
+        named = dict(zip(tflat, grads))
+        for path in (["blocks/tm/wr"] if cfg.rwkv else
+                     ["blocks/attn/wq", "blocks/xattn/wq",
+                      "enc_blocks/attn/wq"] if cfg.enc_dec else
+                     ["blocks/attn/wq"]):
+            assert not _tnp(named[path])[:, :, dead].any(), path
 
 
 def state_to_numpy_j(tree):
@@ -447,3 +480,42 @@ def test_flash_attention_honours_chunk():
                                _single_pass_attention(q, k, v).numpy(),
                                rtol=1e-6, atol=1e-6)
     assert Largest.numel == B * chunk * H * S < B * S * H * S
+
+
+@pytest.mark.parametrize("kind", ["causal", "swa", "cross"])
+def test_attention_backward_saves_no_scores(kind):
+    """Under autograd a block of queries saves its inputs, its output and
+    one log-sum-exp a row (the reference's custom VJP), never a score or
+    probability tensor: every saved tensor is smaller than one block's
+    scores (B * chunk * H * keys), and the gradients equal those of the
+    single pass through plain autograd to f32 rounding."""
+    rng = np.random.RandomState(10)
+    B, chunk, H, K, hd = 2, 16, 4, 2, 8
+    S = 4 * chunk
+    T_ = 24 if kind == "cross" else S
+    q = torch.from_numpy(rng.randn(B, S, H, hd).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(B, T_, K, hd).astype(np.float32))
+            for _ in range(2))
+    up = torch.from_numpy(rng.randn(B, S, H, hd).astype(np.float32))
+    ins = [t.requires_grad_(True) for t in (q, k, v)]
+    largest = []
+
+    def pack(t):
+        largest.append(t.numel())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        if kind == "swa":
+            out = attn.sliding_window_attention(*ins, window=chunk,
+                                                chunk=chunk)
+        else:
+            out = attn.flash_attention(*ins, causal=kind == "causal",
+                                       chunk=chunk)
+    grads = torch.autograd.grad(out, ins, up)
+    span = 2 * chunk if kind == "swa" else T_     # keys a block sees
+    assert max(largest) < B * chunk * H * span
+    if kind == "causal":
+        want = torch.autograd.grad(_single_pass_attention(*ins), ins, up)
+        for g, w in zip(grads, want):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                       atol=1e-5)

@@ -7,7 +7,12 @@ tail; "hymba-pad16" pads 25 heads over 5 KV heads to 48 over 6, as the
 full-width config does) and reduced rwkv6-3b (attention-free: the
 decode state is an f32 `la` state and two token-shift states, no K/V;
 "rwkv-pad" stores 5 heads as 6, padding without grouping as the
-full-width config's 40 heads are stored as 48), the decode-vs-prefill
+full-width config's 40 heads are stored as 48) and reduced
+whisper-large-v3 (encoder-decoder: prefill also runs the encoder over
+stub frames and keeps each decoder block's cross K/V, `xk`/`xv`, which
+decode reads and never writes; "whisper-pad" stores 5 heads over 5 KV
+heads as 8 over 8, KV heads padded without grouping as the full-width
+config's 20 are stored as 32), the decode-vs-prefill
 continuation, the port's
 own live-image restore continuation, and the CPU run of the
 `serve_with_snapshot` example twin.  Both packages get
@@ -20,12 +25,20 @@ Tolerances:
     1e-4 with an absolute floor of 1e-4 of the tensor's largest magnitude
     for the MoE layer and the model (the stacks sum in different orders);
   * bfloat16: 2e-2 of the tensor's norm (8 bits of mantissa, rounded at
-    other places in the two stacks);
+    other places in the two stacks); for reduced whisper the port's
+    distance from the reference's float32 result must stay within 1.25x
+    the reference's own bf16 distance from it, plus 1e-2, the rule of
+    tests/test_torch_model.py for bf16 gradients: this model's bf16
+    prefill logits sit 20-38% from its f32 ones in the reference, and
+    move by 1.8-4.1% when the reference alone changes `attn_chunk`
+    from 16 to 8, so 2e-2 is within the reference's own noise;
   * decode vs prefill within the port: the reference's own tolerance
     (tests/test_archs_smoke.py, rtol 0.12, atol 0.15 on bf16 logits);
   * the port against itself (restore continuation, functional decode):
     bit for bit.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -252,7 +265,9 @@ VARIANTS = {"hymba-pad16": ("hymba-1.5b", dict(n_heads=25, n_kv_heads=5,
                                                head_dim=8, pad_to=16)),
             "hymba-full": ("hymba-1.5b", dict(sliding_window=0)),
             "rwkv-pad": ("rwkv6-3b", dict(n_heads=5, n_kv_heads=5,
-                                          head_dim=8, pad_to=2))}
+                                          head_dim=8, pad_to=2)),
+            "whisper-pad": ("whisper-large-v3", dict(n_heads=5, n_kv_heads=5,
+                                                     head_dim=8, pad_to=8))}
 
 
 def _model(arch, dtype):
@@ -269,35 +284,75 @@ def _model(arch, dtype):
     return jcfg, cfg, jrc, rc, params
 
 
+def _batch(cfg, toks, seed=7):
+    """Prefill inputs: the tokens, and for enc-dec models (B, Te, d) f32
+    stub frames from a numpy seed (numpy in, numpy out)."""
+    batch = {"tokens": toks}
+    if cfg.enc_dec:
+        batch["frames"] = np.random.RandomState(seed).randn(
+            toks.shape[0], cfg.enc_positions, cfg.d_model).astype(np.float32)
+    return batch
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+def _jax_decode(jcfg, jrc, params, batch, toks):
+    """The reference's prefill and teacher-forced decode: [(logits,
+    state)] after the prefill and after each of DECODES steps."""
+    jprefill, jserve = (jax.jit(f) for f in jmake_serve_steps(jcfg, jrc,
+                                                              None))
+    jparams = jax.tree.map(jnp.asarray, params)
+    out = [jprefill(jparams, {k: jnp.asarray(v) for k, v in batch.items()})]
+    for i in range(DECODES):
+        tok = jnp.asarray(toks[:, SEQ + i:SEQ + i + 1])
+        out.append(jserve(jparams, out[-1][1], tok))
+    return out
+
+
 @pytest.mark.parametrize("arch,dtype", [
     (arch, dtype)
     for arch in ("qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b", "hymba-pad16",
-                 "rwkv6-3b", "rwkv-pad")
+                 "rwkv6-3b", "rwkv-pad", "whisper-large-v3", "whisper-pad")
     for dtype in ("float32", "bfloat16")] + [("hymba-full", "float32")])
 def test_prefill_and_decode_match_reference(arch, dtype):
     jcfg, cfg, jrc, rc, params = _model(arch, dtype)
     toks = np.random.RandomState(1).randint(
         0, cfg.vocab_size, (BATCH, SEQ + DECODES)).astype(np.int32)
-    jprefill, jserve = (jax.jit(f) for f in jmake_serve_steps(jcfg, jrc, None))
+    batch = _batch(cfg, toks[:, :SEQ])
     prefill, serve = make_serve_steps(cfg, rc)
-    jparams = jax.tree.map(jnp.asarray, params)
     tparams = state_from_numpy(params, "cpu")
+    ref = _jax_decode(jcfg, jrc, params, batch, toks)
+    if cfg.enc_dec and dtype == "bfloat16":
+        # the reference's own accuracy (module docstring)
+        exact = _jax_decode(jcfg, dataclasses.replace(jrc, dtype="float32"),
+                            params, batch, toks)
 
-    jl, js = jprefill(jparams, {"tokens": jnp.asarray(toks[:, :SEQ])})
-    tl, ts = prefill(tparams, {"tokens": torch.from_numpy(toks[:, :SEQ])})
-    _close(_np(tl), _np(jl), dtype)
+        def close(got, i, leaf):
+            want = [o[1]["layers"][leaf] if leaf else o[0] for o in
+                    (ref[i], exact[i])]
+            ours, theirs = _rel(got, want[1]), _rel(want[0], want[1])
+            assert ours <= 1.25 * theirs + 1e-2, (i, leaf, ours, theirs)
+    else:
+        def close(got, i, leaf):
+            _close(got, _np(ref[i][1]["layers"][leaf] if leaf else ref[i][0]),
+                   dtype)
+
+    tl, ts = prefill(tparams, _torch_batch(batch))
+    close(_np(tl), 0, None)
     for i in range(DECODES):
+        js = ref[i][1]
         assert int(ts["pos"]) == int(js["pos"]) == SEQ + i
         assert ts["pos"].dtype == torch.int32 and ts["pos"].dim() == 0
         assert sorted(ts["layers"]) == sorted(js["layers"])
         for key, c in ts["layers"].items():
             assert str(c.dtype) == f"torch.{js['layers'][key].dtype}"
-            _close(_np(c), _np(js["layers"][key]), dtype)
+            close(_np(c), i, key)
         tok = toks[:, SEQ + i:SEQ + i + 1]        # teacher forcing
-        jl, js = jserve(jparams, js, jnp.asarray(tok))
         tl, ts = serve(tparams, ts, torch.from_numpy(tok))
         assert tl.shape == (BATCH, 1, cfg.vocab_padded)
-        _close(_np(tl), _np(jl), dtype)
+        close(_np(tl), i + 1, None)
     if cfg.sliding_window:
         # the ring wrapped: positions SEQ.. went to slots 0..DECODES-1
         assert ts["layers"]["k"].shape[2] == cfg.sliding_window < SEQ
@@ -305,7 +360,7 @@ def test_prefill_and_decode_match_reference(arch, dtype):
 
 def test_decode_state_layout_matches_reference():
     for arch in ("qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b", "hymba-pad16",
-                 "rwkv6-3b", "rwkv-pad"):
+                 "rwkv6-3b", "rwkv-pad", "whisper-large-v3", "whisper-pad"):
         jcfg, cfg, jrc, rc, _ = _model(arch, "bfloat16")
         shape = ShapeConfig("d", 48, 3, "decode")
         ours = T.init_decode_state(cfg, shape, rc, device="cpu")
@@ -322,31 +377,33 @@ def test_decode_state_layout_matches_reference():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b",
-                                  "hymba-pad16", "rwkv6-3b", "rwkv-pad"])
+                                  "hymba-pad16", "rwkv6-3b", "rwkv-pad",
+                                  "whisper-large-v3", "whisper-pad"])
 def test_decode_matches_prefill_continuation(arch):
     """Decode after a prefill of P tokens agrees with the last position
     of a forward over P + 1 tokens (tests/test_archs_smoke.py's check;
-    for Mixtral P is the window, so the decode wraps the ring)."""
+    for Mixtral P is the window, so the decode wraps the ring; for
+    whisper both see the same frames)."""
     _, cfg, _, rc, params = _model(arch, "bfloat16")
     tparams = state_from_numpy(params, "cpu")
     P = cfg.sliding_window or 15
-    toks = torch.from_numpy(np.random.RandomState(1).randint(
-        0, cfg.vocab_size, (2, P + 1)).astype(np.int32))
+    toks = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, P + 1)).astype(np.int32)
     prefill, serve = make_serve_steps(cfg, rc)
-    _, st = prefill(tparams, {"tokens": toks[:, :P]})
-    dec, _ = serve(tparams, st, toks[:, P:])
+    _, st = prefill(tparams, _torch_batch(_batch(cfg, toks[:, :P])))
+    dec, _ = serve(tparams, st, torch.from_numpy(toks[:, P:]))
     with torch.no_grad():
-        x, _, _ = T.forward(tparams, cfg, rc, None, {"tokens": toks})
+        x, _, _ = T.forward(tparams, cfg, rc, None,
+                            _torch_batch(_batch(cfg, toks)))
         full = T._logits(tparams, cfg, x[:, -1])
     np.testing.assert_allclose(_np(full), _np(dec[:, 0]), rtol=0.12,
                                atol=0.15)
 
 
 def test_unported_families_raise():
-    for arch in ("whisper-large-v3", "llama-3.2-vision-11b"):
-        cfg = reduced_config(ARCHS[arch])
-        with pytest.raises(NotImplementedError, match="not ported"):
-            T.init_params(cfg, None, "meta")
+    cfg = reduced_config(ARCHS["llama-3.2-vision-11b"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        T.init_params(cfg, None, "meta")
 
 
 # ---------------------------------------------------------------------------
@@ -368,39 +425,54 @@ def test_rwkv_decode_step_leaves_its_state_unchanged(arch):
     _check_decode_step_leaves_its_state(arch)
 
 
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "whisper-pad"])
+def test_encdec_decode_step_leaves_its_state_unchanged(arch):
+    """The same for whisper: the self K/V are copied and written, the
+    cross K/V pass into the new state as they were, uncopied."""
+    _check_decode_step_leaves_its_state(arch)
+
+
 def _check_decode_step_leaves_its_state(arch):
     _, cfg, _, rc, params = _model(arch, "bfloat16")
     tparams = state_from_numpy(params, "cpu")
     prefill, serve = make_serve_steps(cfg, rc)
-    toks = torch.from_numpy(np.random.RandomState(2).randint(
-        0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32))
-    _, st = prefill(tparams, {"tokens": toks})
+    toks = np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
+    _, st = prefill(tparams, _torch_batch(_batch(cfg, toks)))
     before = state_to_numpy(st)
-    _, st2 = serve(tparams, st, toks[:, :1])
+    _, st2 = serve(tparams, st, torch.from_numpy(toks[:, :1]))
     after = state_to_numpy(st)
     assert sorted(after["layers"]) == sorted(
         ("la", "shift_a", "shift_c") if cfg.rwkv else
-        ("k", "v", "ssm", "conv") if cfg.ssm_state else ("k", "v"))
+        ("k", "v", "ssm", "conv") if cfg.ssm_state else
+        ("k", "v", "xk", "xv") if cfg.enc_dec else ("k", "v"))
     for key in after["layers"]:
         np.testing.assert_array_equal(after["layers"][key],
                                       before["layers"][key])
-        assert not np.array_equal(state_to_numpy(st2)["layers"][key],
-                                  before["layers"][key])
+        if key in ("xk", "xv"):       # read-only: the same tensor
+            assert st2["layers"][key] is st["layers"][key]
+        else:
+            assert not np.array_equal(state_to_numpy(st2)["layers"][key],
+                                      before["layers"][key])
+            assert (st2["layers"][key].data_ptr()
+                    != st["layers"][key].data_ptr())
     assert int(st["pos"]) == SEQ and int(st2["pos"]) == SEQ + 1
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b",
-                                  "rwkv6-3b", "rwkv-pad"])
+                                  "rwkv6-3b", "rwkv-pad", "whisper-large-v3",
+                                  "whisper-pad"])
 def test_snapshot_restore_continuation_is_bitwise(arch, tmp_path):
     """A full image at token 6 and an XOR-delta image at token 10; a fresh
     manager restores 10 through the chain, and tokens 11-15 with their
-    logits equal the uninterrupted run's bit for bit."""
+    logits equal the uninterrupted run's bit for bit (for whisper the
+    cross K/V's delta is all zero bytes, restored through the chain)."""
     _, cfg, _, rc, params = _model(arch, "bfloat16")
     tparams = state_from_numpy(params, "cpu")
     prefill, serve = make_serve_steps(cfg, rc)
-    toks = torch.from_numpy(np.random.RandomState(3).randint(
-        0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32))
-    logits, st = prefill(tparams, {"tokens": toks})
+    toks = np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (BATCH, SEQ)).astype(np.int32)
+    logits, st = prefill(tparams, _torch_batch(_batch(cfg, toks)))
     mgr = CheckpointManager(str(tmp_path), delta_keys=("decode",),
                             device="cpu")
     logical = {"decode": T.decode_state_logical(cfg)}
@@ -413,10 +485,13 @@ def test_snapshot_restore_continuation_is_bitwise(arch, tmp_path):
         gen.append(tok)
         if i in (6, 10):
             mgr.save(i, {"decode": st}, logical)
+            saved = st
     assert mgr.stats[-1]["bytes"] == mgr.stats[0]["bytes"]
     restored, _ = CheckpointManager(str(tmp_path), device="cpu").restore(10)
     st2 = restored["decode"]
     assert st2["pos"].shape == () and int(st2["pos"]) == SEQ + 11
+    for key, c in saved["layers"].items():
+        assert torch.equal(st2["layers"][key], c), key
     tok2 = gen[10]
     for i in range(11, 16):
         logits2, st2 = serve(tparams, st2, tok2)
