@@ -45,17 +45,18 @@ each fatal on failure:
      memory, and one JSON line of the kernels with their launches on the
      main path.  The counts are set to 0 just before each main-path
      phase (2, 3, the serve phases, the world phases, cli, quickstart,
-     preempt, train_moe, train_hybrid, train_rwkv and train_whisper) and
-     read just after it, adding the counts that a world phase's spawned socket ranks report from
-     their own processes; each phase must launch the kernels of its path
-     (2, cli: checksum, XOR; 3: checksum, quantize, dequantize; serving:
+     preempt and the train phases) and read just after it, adding the
+     counts that a world phase's spawned socket ranks report from their
+     own processes; each phase must launch the kernels of its path (2,
+     cli: checksum, XOR; 3: checksum, quantize, dequantize; serving:
      checksum, XOR; world_pipeline and world_cross: XOR; quickstart,
      preempt: checksum; train_moe, train_hybrid, train_rwkv,
-     train_whisper: all four), and `launches` is their sum.  The peak
-     device memory is reset before each phase and printed per phase,
-     with each phase's wall time.
-  serve_dense, serve_moe, serve_hybrid, serve_rwkv, serve_whisper: the
-     serving path (`make_serve_steps`) with live decode-state images.
+     train_whisper, train_vision: all four), and `launches` is their
+     sum.  The peak device memory is reset before each phase and printed
+     per phase, with each phase's wall time.
+  serve_dense, serve_moe, serve_hybrid, serve_rwkv, serve_whisper,
+     serve_vision: the serving path (`make_serve_steps`) with live
+     decode-state images.
      qwen2-0.5b at full width and depth, 8 prompts of 2048 tokens;
      Mixtral-8x7B at full width cut to 4 of 32 layers, 4 prompts of 8192
      tokens (twice the SWA window: prefill takes the SWA path and the
@@ -73,7 +74,15 @@ each fatal on failure:
      prompt (with 16 decoded tokens, the decoder's 448-token context): its
      decode state adds the cross K/V `xk`/`xv`, (32, 8, 1500, 32, 64)
      bf16, 1,572,864,000 bytes each, written by prefill and never by a
-     decode step (4,320,133,124 bytes in all).  Each: prefill, 16
+     decode step (4,320,133,124 bytes in all); llama-3.2-vision-11b at
+     full width and depth (40 layers: 8 groups of 4 self blocks and a
+     cross block; 32 heads over 8 KV heads, unpadded; 10,110,734,336
+     params stored, 40.4 GB in f32), 8 prompts of 2048 tokens, each with
+     (1600, 4096) f32 stub patches drawn on the card: its decode state is
+     the self blocks' K/V, (8, 4, 8, 2176, 8, 128) bf16 (2,281,701,376
+     bytes for both), and the cross blocks' `xk`/`xv`, (8, 8, 1600, 8,
+     128) bf16 (419,430,400 bytes for both), written by prefill and never
+     by a decode step (2,701,131,780 bytes in all).  Each: prefill, 16
      greedy decode steps, an image of the decode state at token 6 (full)
      and at token 10 (XOR delta on 6); a fresh manager restores token 10
      through the chain onto the card (every leaf equal to the live
@@ -81,12 +90,11 @@ each fatal on failure:
      must equal the first run's tokens and logits bit for bit.  Decode
      after a shorter prefill must agree with a full forward over the
      same tokens (f32, the first 2 layers, and for whisper the first 2
-     encoder layers over the same frames, norm-relative 1e-3).
-  decode_clone (after the phases, a measurement only): whisper's decode
-     as shipped against the same step with `xk`/`xv` copied first, as
-     every leaf was copied before: ms a token, peak memory, and the
-     kernels a token and busy share of the shipped step
-     (`torch.profiler`).
+     encoder layers over the same frames; for vision the first self
+     block and the first cross block over the same patches, with the
+     cut copy's `cross_blocks/attn/wo` zeroed, because decode runs a
+     cross layer as pure cross attention and the forward does not: see
+     `_check_decode_against_forward`; norm-relative 1e-3).
   world_pipeline, world_cross, world_elastic: multi-rank worlds with the
      rank state on the card, driven through the `multirank_simulation`
      twin (`src/repro_torch/examples/multirank_simulation.py`): 64 inproc
@@ -111,8 +119,8 @@ each fatal on failure:
      steps).  preempt: the preemption twin at its default 200 steps,
      which asserts its restarted losses equal the uninterrupted run's and
      prints PASS.  Step times by host clock.
-  train_moe, train_hybrid, train_rwkv, train_whisper: full-width
-     training through `MANARuntime`.
+  train_moe, train_hybrid, train_rwkv, train_whisper, train_vision:
+     full-width training through `MANARuntime`.
      train_moe: Mixtral-8x7B at full width cut to 1 of 32 layers (1.71 B
      params, 8 experts top-2, SWA 4096), B 1 x S 8192 (twice the window:
      the SWA path; B 2 does not fit beside an image's snapshot, see
@@ -124,17 +132,21 @@ each fatal on failure:
      phase 3 checks qwen2-0.5b's.  Free disk under the phase's directory
      is checked before the images (it fails with the numbers), and each
      image directory is deleted when its check is done.  train_hybrid:
-     the same run for hymba-1.5b at full width and depth (heads padded to
-     48 over 6), B 4 x S 4096 (see `TRAIN_4K_BATCH`; four times hymba's
-     SWA window, so the sliding-window path); its losses must repeat bit
-     for bit.  train_rwkv: the same run for rwkv6-3b at full width cut to
-     16 of 32 layers (1,809,787,392 params stored, heads padded 40 -> 48;
-     full depth's 3.28 B params would need 118 GB with an image in
-     flight, see `RWKV_LAYERS`), B 4 x S 4096 as train_hybrid.
-     train_whisper: the same run for whisper-large-v3 at full width cut to
-     24 of 32 layers in both stacks (1,831,641,600 params stored; full
-     depth's 2.40 B would need 86.3 GB, see `WHISPER_LAYERS`), B 4 x S
-     4096 decoder tokens, 1500 frames a sample.  Each
+     the same run for hymba-1.5b at full width cut to 16 of 32 layers
+     (950,632,768 params stored; heads padded to 48 over 6), B 4 x S 4096
+     (see `TRAIN_4K_BATCH`; four times hymba's SWA window, so the
+     sliding-window path); its losses must repeat bit for bit.
+     train_rwkv: the same run for rwkv6-3b at full width cut to 8 of 32
+     layers (1,072,667,136 params stored, heads padded 40 -> 48), B 4 x S
+     4096 as train_hybrid.  train_whisper: the same run for
+     whisper-large-v3 at full width cut to 12 of 32 layers in both stacks
+     (982,218,240 params stored), B 4 x S 4096 decoder tokens, 1500
+     frames a sample.  These three depths are cut to keep the whole smoke
+     inside its time limit (see `HYBRID_LAYERS`).  train_vision: the same
+     run for llama-3.2-vision-11b at full width cut to one group of 3
+     layers, 2 self blocks and a cross block (1,746,960,384 params
+     stored; a full group of 5 would need 78.6 GB before any activation,
+     see `VISION_LAYERS`), B 4 x S 4096, 1600 patches a sample.  Each
      prints step seconds, image bytes,
      write and restore seconds, the peak device memory of its first two
      steps (before any image holds a snapshot copy of the state) and of
@@ -831,10 +843,23 @@ def _check_decode_against_forward(params, cfg, rc, inputs, report):
     """Prefill + one decode step against a full forward over the same
     tokens, on the full-width params cut to their first 2 layers (and,
     for enc-dec, 2 encoder layers, with the first request's frames given
-    to both), in float32, for the first prompt.  (At full depth the
-    random-init network amplifies rounding: decode and forward of
-    qwen2-0.5b part far beyond rounding even in float32, while their
-    first layers agree to it.)
+    to both; for vision, the first self block and the first cross block,
+    with the first request's patches given to both), in float32, for
+    the first prompt.  (At full depth the random-init network amplifies
+    rounding: decode and forward of qwen2-0.5b part far beyond rounding
+    even in float32, while their first layers agree to it.  Vision's
+    whole first group of 5 layers is already past that point at full
+    width: one rounding of each parameter moves its forward's logits by
+    several percent for some prompts, `tools/probe_decode_depth.py`.)
+
+    For vision the cut copy's cross block has its self-attention output
+    projection, `cross_blocks/attn/wo`, replaced by zeros.  Decode runs a
+    cross layer as pure cross attention (no `ln1`, no self-attention, as
+    the reference's `decode_step` does), while the forward runs the
+    cross block's self-attention too, so without the zeros the two part
+    by design, in the reference as here (about the logits' own norm at
+    the reduced config); with them that self-attention adds nothing and
+    every other path of both is held.
 
     The prefill takes P tokens: P = S - 1, or the SWA window, so that the
     decode wraps a ring of capacity P.  The forward runs over P + 1
@@ -849,11 +874,21 @@ def _check_decode_against_forward(params, cfg, rc, inputs, report):
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
 
-    depth = 2
-    cut = dataclasses.replace(cfg, n_layers=depth)
-    cut_params = dict(params, blocks=tree_map(lambda t: t[:depth],
-                                              params["blocks"]))
+    first = lambda t: t[:1]
     extra_in = {}
+    depth = 2
+    if cfg.cross_attn_every:      # one group of one self block + the cross
+        cross = tree_map(first, params["cross_blocks"])
+        cross["attn"] = dict(cross["attn"],
+                             wo=torch.zeros_like(cross["attn"]["wo"]))
+        cut_params = dict(params, cross_blocks=cross, self_blocks=tree_map(
+            lambda t: t[:1, :1], params["self_blocks"]))
+        cut = dataclasses.replace(cfg, n_layers=depth, cross_attn_every=depth)
+        extra_in["patches"] = inputs["patches"][:1]
+    else:
+        cut_params = dict(params, blocks=tree_map(lambda t: t[:depth],
+                                                  params["blocks"]))
+        cut = dataclasses.replace(cfg, n_layers=depth)
     if cfg.enc_dec:
         cut = dataclasses.replace(cut, n_enc_layers=depth)
         cut_params["enc_blocks"] = tree_map(lambda t: t[:depth],
@@ -888,7 +923,8 @@ def _check_decode_against_forward(params, cfg, rc, inputs, report):
 
 def _serve_inputs(cfg, S: int, batch: int, gen) -> dict:
     """`batch` prompts of S tokens drawn on the card, and for enc-dec
-    models (batch, Te, d) f32 stub frames from the same generator."""
+    models (batch, Te, d) f32 stub frames, for vision models (batch, Tv,
+    d) f32 stub patches, from the same generator."""
     import torch
 
     dev = torch.device("cuda")
@@ -899,6 +935,10 @@ def _serve_inputs(cfg, S: int, batch: int, gen) -> dict:
         inputs["frames"] = torch.randn((batch, cfg.enc_positions,
                                         cfg.d_model), generator=gen,
                                        device=dev)
+    if cfg.cross_attn_every:
+        inputs["patches"] = torch.randn((batch, cfg.vision_tokens,
+                                         cfg.d_model), generator=gen,
+                                        device=dev)
     return inputs
 
 
@@ -926,20 +966,19 @@ def phase_serve(cfg, rc, batch: int, root: str, report: dict):
     logits, state = prefill_step(params, inputs)
     torch.cuda.synchronize()
     report["prefill_s"] = time.monotonic() - t0
+    Kp, hd = cfg.n_kv_heads_padded, cfg.head_dim
+    T_cap = min(cfg.sliding_window, S) if cfg.sliding_window else (
+        S + rc.decode_margin)
     if cfg.rwkv:      # the la state: fixed-size, whatever the prompt
-        leaf = "la"
-        want = (cfg.n_layers, batch, cfg.n_heads_padded, cfg.head_dim,
-                cfg.head_dim)
+        shapes = {"la": (cfg.n_layers, batch, cfg.n_heads_padded, hd, hd)}
+    elif cfg.cross_attn_every:   # the self blocks' K/V, (G, per-1, ...),
+        G = cfg.n_layers // cfg.cross_attn_every    # and the cross K/V
+        shapes = {"k": (G, cfg.cross_attn_every - 1, batch, T_cap, Kp, hd),
+                  "xk": (G, batch, cfg.vision_tokens, Kp, hd)}
     else:
-        leaf = "k"
-        T_cap = min(cfg.sliding_window, S) if cfg.sliding_window else (
-            S + rc.decode_margin)
-        want = (cfg.n_layers, batch, T_cap, cfg.n_kv_heads_padded,
-                cfg.head_dim)
-    shapes = {leaf: want}
+        shapes = {"k": (cfg.n_layers, batch, T_cap, Kp, hd)}
     if cfg.enc_dec:   # the cross K/V: every frame, whatever the prompt
-        shapes["xk"] = (cfg.n_layers, batch, cfg.enc_positions,
-                        cfg.n_kv_heads_padded, cfg.head_dim)
+        shapes["xk"] = (cfg.n_layers, batch, cfg.enc_positions, Kp, hd)
     got = {key: tuple(state["layers"][key].shape) for key in shapes}
     if (tuple(logits.shape) != (batch, cfg.vocab_padded)
             or not torch.isfinite(logits).all()
@@ -1025,6 +1064,9 @@ def report_serve(name: str, cfg, rc, batch: int, r: dict, card: str):
         + (f", enc-dec: {cfg.n_enc_layers} encoder layers over "
            f"{cfg.enc_positions} frames, cross attention in every decoder "
            f"layer" if cfg.enc_dec else "")
+        + (f", vision: {cfg.n_layers // cfg.cross_attn_every} groups of "
+           f"{cfg.cross_attn_every - 1} self blocks and a cross block over "
+           f"{cfg.vision_tokens} patches" if cfg.cross_attn_every else "")
         + f"; B={batch} prompts of {rc.shape.seq_len}, bf16 compute, f32 "
         f"params; {SERVE_STEPS} greedy tokens")
     log(f"{name}: init_s {r['init_s']:.4f}, prefill_s {r['prefill_s']:.4f}, "
@@ -1034,13 +1076,15 @@ def report_serve(name: str, cfg, rc, batch: int, r: dict, card: str):
         log(f"{name}: decode-state image token {w['step']}: {w['bytes']} "
             f"bytes, snapshot_s {w['snapshot_s']}, write_s {w['write_s']} "
             f"[{card}]")
+    err, P = r["decode_vs_forward"]
     log(f"{name}: restore of token {SNAP_DELTA} (chain {SNAP_DELTA} -> "
         f"{SNAP_FULL}) {r['restore_s']:.4f} s; tokens {SNAP_DELTA + 1}-"
         f"{SERVE_STEPS - 1} and their logits equal the first run bit for "
         f"bit; {r['distinct_tokens']} distinct tokens generated; decode "
-        f"after a prefill of {r['decode_vs_forward'][1]} vs forward (f32, "
-        f"first 2 layers) norm-relative {r['decode_vs_forward'][0]:.3e} "
-        f"[{card}]")
+        f"after a prefill of {P} vs forward (f32, "
+        + ("first self block and cross block, cross_blocks/attn/wo zeroed"
+           if cfg.cross_attn_every else "first 2 layers")
+        + f") norm-relative {err:.3e} [{card}]")
     log(f"{name}: decode state by leaf {r['state_bytes']} bytes, "
         f"{sum(r['state_bytes'].values())} in all; max_memory_allocated "
         f"{r['peak']} bytes ({r['peak'] / 2**30:.2f} GiB) [{card}]")
@@ -1347,21 +1391,28 @@ def phase_preempt(root: str, report: dict):
 # the update freeing them as it goes, peaks at 73.1 GB).  S 8192 is
 # twice the SWA window, so training takes the sliding-window path.
 MOE_BATCH, MOE_SEQ = 1, 8192
-# train_hybrid and train_rwkv: the reference's train_4k sequence length,
-# cut in batch from train_4k's 256.  hymba-1.5b at full depth and B 4
-# peaks at 73.7 GB with an image's snapshot (a device copy of params and
-# moments, 21.6 GB) held, 51.4 GB before it (an H100 80GB HBM3, 700 W):
-# the optimizer update, not the batch, sets the peak
+# the training phases but train_moe: the reference's train_4k sequence
+# length, cut in batch from train_4k's 256.  hymba-1.5b at full depth and
+# B 4 peaks at 73.7 GB with an image's snapshot (a device copy of params
+# and moments, 21.6 GB) held, 51.4 GB before it (an H100 80GB HBM3, 700
+# W): the optimizer update, not the batch, sets the peak
 TRAIN_4K_BATCH, TRAIN_4K_SEQ = 4, 4096
-# rwkv6-3b at full width cut to 16 of 32 layers (1,809,787,392 params
-# stored, full-depth hymba-1.5b's size): full depth (3.28 B params)
-# needs 36 bytes a param with the update and an image in flight, 118 GB
-RWKV_LAYERS = 16
-# whisper-large-v3 at full width cut to 24 of 32 layers in both stacks
-# (1,831,641,600 params stored, full-depth hymba-1.5b's size): full depth
-# (2,397,923,840 params) needs 36 bytes a param with the update and an
-# image in flight, 86.3 GB
-WHISPER_LAYERS = 24
+# The depth of the training phases of hymba-1.5b, rwkv6-3b and
+# whisper-large-v3 (both stacks), each at full width.  Each is a
+# fraction of the depth that fits one card (hymba 32 of 32 layers, rwkv
+# 16 of 32, whisper 24 + 24 of 32 + 32, each ~1.8 B params stored and
+# 71-74 GB at its peak with an image in flight) so that the whole smoke,
+# with its vision phases, stays well inside its time limit: each phase's
+# time is mostly its ~22 GB images' writes and restores, which shrink
+# with the depth.
+HYBRID_LAYERS, RWKV_LAYERS, WHISPER_LAYERS = 16, 8, 12
+# llama-3.2-vision-11b at full width cut to one group of 3 layers, 2 self
+# blocks and 1 cross block (`n_layers = cross_attn_every = 3`;
+# 1,746,960,384 params stored, whisper's and hymba's size; the untied
+# 128,256-row embedding and head are 1.05 B of them): one full group of
+# the config's 5 layers (2,183,184,384 params) needs 36 bytes a param
+# with the update and an image in flight, 78.6 GB before any activation
+VISION_LAYERS = 3
 # serve_whisper's prompt: with SERVE_STEPS decoded tokens it ends at the
 # decoder's 448-token context
 WHISPER_PROMPT = 432
@@ -1461,6 +1512,10 @@ def report_train_wide(label: str, cfg, rc, r: dict, peak: int, wall: float,
     if cfg.enc_dec:
         depth += (f" (decoder) and {cfg.n_enc_layers} of "
                   f"{full.n_enc_layers} (encoder)")
+    if cfg.cross_attn_every:
+        depth += (f" ({cfg.n_layers // cfg.cross_attn_every} group(s) of "
+                  f"{cfg.cross_attn_every - 1} self blocks and a cross block "
+                  f"over {cfg.vision_tokens} patches a sample)")
     log(f"{label}: {cfg.arch_id} at full width, {depth} "
         f"({_stored_params(cfg)} params stored; d {cfg.d_model}, "
         f"{cfg.n_heads_padded}/{cfg.n_kv_heads_padded} padded heads, d_ff "
@@ -1487,95 +1542,6 @@ def report_train_wide(label: str, cfg, rc, r: dict, peak: int, wall: float,
         f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB), of "
         f"the first two steps before any image {before} bytes "
         f"({before / 2**30:.2f} GiB) [{card}]")
-
-
-# tokens a block of the decode-clone comparison decodes, and its blocks
-# for each variant
-CLONE_TOKENS, CLONE_BLOCKS = 4, 2
-
-
-def measure_decode_clone(cfg, rc, batch: int, card: str) -> dict:
-    """Whisper's decode as shipped (the cross K/V passed into the new
-    state uncopied) against the same step with `xk` and `xv` copied first,
-    as `decode_step` copied every leaf before: host ms a token over
-    blocks of `CLONE_TOKENS` tokens taking turns, each variant's peak
-    device memory, and for the shipped step the kernels a token and the
-    device's busy share from `torch.profiler`.  A measurement beside the
-    phases: it writes no image and counts no launch."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.models.transformer import init_params
-    from repro_torch.training.step import make_serve_steps
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    params, _ = init_params(cfg, gen, dev)
-    prefill_step, serve_step = make_serve_steps(cfg, rc)
-    logits, state = prefill_step(params, _serve_inputs(
-        cfg, rc.shape.seq_len, batch, gen))
-    box = {"state": state, "tok": _greedy(logits)}
-    del state, logits
-
-    def shipped():
-        return serve_step(params, box["state"], box["tok"])
-
-    def cloned():
-        st = box["state"]
-        layers = dict(st["layers"], xk=st["layers"]["xk"].clone(),
-                      xv=st["layers"]["xv"].clone())
-        return serve_step(params, {"pos": st["pos"], "layers": layers},
-                          box["tok"])
-
-    def step(fn):
-        out, box["state"] = fn()
-        box["tok"] = _greedy(out[:, -1])
-
-    for fn in (shipped, cloned):
-        step(fn)
-    times = {"shipped": [], "cloned": []}
-    peaks = {"shipped": 0, "cloned": 0}
-    for _ in range(CLONE_BLOCKS):
-        for name, fn in (("shipped", shipped), ("cloned", cloned)):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for _ in range(CLONE_TOKENS):
-                t0 = time.monotonic()
-                step(fn)
-                torch.cuda.synchronize()
-                times[name].append(time.monotonic() - t0)
-            peaks[name] = max(peaks[name],
-                              torch.cuda.max_memory_allocated())
-    n = 2
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(n):
-            step(shipped)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e6
-    out = {"times": times, "peaks": peaks,
-           "kernels_per_token": len(kernels) / n,
-           "busy_share": busy / wall if kernels else None}
-    med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in times.items()}
-    ms = {k: [round(t * 1e3, 3) for t in v] for k, v in times.items()}
-    log(f"decode_clone: {cfg.arch_id} B={batch}, decode ms/token median "
-        f"shipped {med['shipped']:.3f} (all {ms['shipped']}), xk/xv copied "
-        f"{med['cloned']:.3f} (all {ms['cloned']}); peak shipped "
-        f"{peaks['shipped']} bytes ({peaks['shipped'] / 2**30:.2f} GiB), "
-        f"copied {peaks['cloned']} bytes ({peaks['cloned'] / 2**30:.2f} "
-        f"GiB) [{card}]")
-    log(f"decode_clone: shipped step under torch.profiler: "
-        f"{out['kernels_per_token']:.0f} kernels a token, busy share "
-        + (f"{out['busy_share']:.4f}" if kernels else "not measured (no "
-           "device events)") + f" [{card}]")
-    del params, box
-    torch.cuda.empty_cache()
-    return out
 
 
 def report_entry_points(r: dict, peaks: dict, wall: dict, card: str):
@@ -1658,11 +1624,12 @@ def main() -> int:
     train_moe_rc = RunConfig(model=train_moe_cfg, shape=ShapeConfig(
         "train_moe_h100", MOE_SEQ, MOE_BATCH, "train"), attn_chunk=128)
     # hymba-1.5b at full width and depth, serving as serve_dense does,
-    # training cut in batch only (`TRAIN_4K_BATCH`)
+    # training cut in depth (`HYBRID_LAYERS`) and batch (`TRAIN_4K_BATCH`)
     hybrid_cfg = ARCHS["hymba-1.5b"]
     hybrid_rc = RunConfig(model=hybrid_cfg,
                           shape=ShapeConfig("serve_h100", 2048, 8, "prefill"))
-    train_hybrid_rc = RunConfig(model=hybrid_cfg, shape=ShapeConfig(
+    train_hybrid_cfg = dataclasses.replace(hybrid_cfg, n_layers=HYBRID_LAYERS)
+    train_hybrid_rc = RunConfig(model=train_hybrid_cfg, shape=ShapeConfig(
         "train_hybrid_h100", TRAIN_4K_SEQ, TRAIN_4K_BATCH, "train"),
         attn_chunk=128)
     # rwkv6-3b: serving at full width and depth, training cut in depth
@@ -1685,13 +1652,26 @@ def main() -> int:
     train_whisper_rc = RunConfig(model=train_whisper_cfg, shape=ShapeConfig(
         "train_whisper_h100", TRAIN_4K_SEQ, TRAIN_4K_BATCH, "train"),
         attn_chunk=128)
+    # llama-3.2-vision-11b: serving at full width and depth (8 prompts of
+    # 2048 tokens, each with 1600 patches), training cut in depth
+    # (`VISION_LAYERS`) and batch (`TRAIN_4K_BATCH` x `TRAIN_4K_SEQ`, 1600
+    # patches a sample)
+    vision_cfg = ARCHS["llama-3.2-vision-11b"]
+    vision_rc = RunConfig(model=vision_cfg,
+                          shape=ShapeConfig("serve_h100", 2048, 8, "prefill"))
+    train_vision_cfg = dataclasses.replace(
+        vision_cfg, n_layers=VISION_LAYERS, cross_attn_every=VISION_LAYERS)
+    train_vision_rc = RunConfig(model=train_vision_cfg, shape=ShapeConfig(
+        "train_vision_h100", TRAIN_4K_SEQ, TRAIN_4K_BATCH, "train"),
+        attn_chunk=128)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     report: dict = {"serve_dense": {}, "serve_moe": {}, "serve_hybrid": {},
-                    "serve_rwkv": {}, "serve_whisper": {},
+                    "serve_rwkv": {}, "serve_whisper": {}, "serve_vision": {},
                     "world_pipeline": {}, "world_cross": {},
                     "world_elastic": {}, "cli": {}, "quickstart": {},
                     "preempt": {}, "train_moe": {}, "train_hybrid": {},
-                    "train_rwkv": {}, "train_whisper": {}}
+                    "train_rwkv": {}, "train_whisper": {},
+                    "train_vision": {}}
     counters = {"checksum": (cops, "launches"), "xor_delta": (dops, "launches"),
                 "quantize_int8": (qops, "launches"),
                 "dequantize_int8": (qops, "dequantize_launches")}
@@ -1715,6 +1695,9 @@ def main() -> int:
         "serve_whisper": (lambda: phase_serve(
             whisper_cfg, whisper_rc, 8, root, report["serve_whisper"]),
             ("checksum", "xor_delta")),
+        "serve_vision": (lambda: phase_serve(
+            vision_cfg, vision_rc, 8, root, report["serve_vision"]),
+            ("checksum", "xor_delta")),
         "world_pipeline": (lambda: phase_world_pipeline(
             root, report["world_pipeline"]), ("xor_delta",)),
         "world_cross": (lambda: phase_world_cross(
@@ -1734,7 +1717,7 @@ def main() -> int:
             "train_moe"),
             ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
         "train_hybrid": (lambda: phase_train_wide(
-            hybrid_cfg, train_hybrid_rc, root, report["train_hybrid"],
+            train_hybrid_cfg, train_hybrid_rc, root, report["train_hybrid"],
             "train_hybrid"),
             ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
         "train_rwkv": (lambda: phase_train_wide(
@@ -1744,6 +1727,10 @@ def main() -> int:
         "train_whisper": (lambda: phase_train_wide(
             train_whisper_cfg, train_whisper_rc, root,
             report["train_whisper"], "train_whisper"),
+            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+        "train_vision": (lambda: phase_train_wide(
+            train_vision_cfg, train_vision_rc, root, report["train_vision"],
+            "train_vision"),
             ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
     }
     by_phase, peaks, wall = {}, {}, {}
@@ -1767,11 +1754,8 @@ def main() -> int:
                if elsewhere else ""))
     shutil.rmtree(root, ignore_errors=True)
     for name in ("serve_dense", "serve_moe", "serve_hybrid", "serve_rwkv",
-                 "serve_whisper"):
+                 "serve_whisper", "serve_vision"):
         report[name]["peak"] = peaks[name]
-    t0 = time.monotonic()
-    measure_decode_clone(whisper_cfg, whisper_rc, 8, card)
-    log(f"decode_clone done in {time.monotonic() - t0:.1f} s")
 
     # phase 4: report
     steps = report["step_s"]
@@ -1798,13 +1782,16 @@ def main() -> int:
                  card)
     report_serve("serve_whisper", whisper_cfg, whisper_rc, 8,
                  report["serve_whisper"], card)
+    report_serve("serve_vision", vision_cfg, vision_rc, 8,
+                 report["serve_vision"], card)
     report_worlds(report, peaks, wall, card)
     report_entry_points(report, peaks, wall, card)
     for name, c, r in (("train_moe", train_moe_cfg, train_moe_rc),
-                       ("train_hybrid", hybrid_cfg, train_hybrid_rc),
+                       ("train_hybrid", train_hybrid_cfg, train_hybrid_rc),
                        ("train_rwkv", train_rwkv_cfg, train_rwkv_rc),
                        ("train_whisper", train_whisper_cfg,
-                        train_whisper_rc)):
+                        train_whisper_rc),
+                       ("train_vision", train_vision_cfg, train_vision_rc)):
         report_train_wide(name, c, r, report[name], peaks[name], wall[name],
                           card)
     log(f"main-path launches, each phase from 0: {by_phase}")

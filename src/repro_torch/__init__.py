@@ -2,10 +2,11 @@
 runtime (`repro_torch.core.runtime.MANARuntime`: hybrid-2PC safe points,
 the `CheckpointManager` codec stack, bit-identical resume) and the
 serving path (`repro_torch.training.step.make_serve_steps`: prefill and
-functional decode steps whose state a live image can hold), for dense,
-MoE and hybrid-SSM (hymba) decoders, with the checkpoint data path's
-kernels written by hand for Hopper (sm_90a): checksum block sums, XOR
-delta, and int8 quantize and dequantize.
+functional decode steps whose state a live image can hold), for every
+model family of the reference (dense, MoE, hybrid-SSM and RWKV-6
+decoders, encoder-decoder and vision cross-attention models), with the
+checkpoint data path's kernels written by hand for Hopper (sm_90a):
+checksum block sums, XOR delta, and int8 quantize and dequantize.
 
 The JAX package `repro` is the reference.  This package imports nothing
 of it and nothing of JAX; it keeps its own copy of every jax-free module

@@ -1,27 +1,30 @@
-"""Model assembly for dense, MoE, hybrid-SSM, attention-free (RWKV-6)
-and encoder-decoder models: init, forward, forward_loss, and the
-serving entry points prefill and decode_step.
+"""Model assembly for dense, MoE, hybrid-SSM, attention-free (RWKV-6),
+encoder-decoder and vision cross-attention models: init, forward,
+forward_loss, and the serving entry points prefill and decode_step.
 
-Port of `repro.models.transformer` for the dense, moe, hybrid, ssm
-(rwkv) and audio (enc-dec) families (GQA, optional QKV bias, RoPE,
-SwiGLU or routed experts, full causal or sliding-window attention, tied
-or untied head; hybrid blocks run Mamba-2-style SSM heads,
-`repro_torch.models.mamba`, beside attention on the same normed input
-and average the two; rwkv blocks are a time-mix and a channel-mix,
-`repro_torch.models.rwkv`, with no attention and no K/V cache; enc-dec
-models run a non-causal encoder over stub frame embeddings plus
-sinusoidal positions, and each decoder block adds cross attention to
-the encoder's output between self-attention and the MLP).  Parameter
-names, shapes, dtypes and the logical-axes trees (params and decode
-state) are the reference's: blocks are stacked on a leading (L, ...)
-layer axis and heads are stored padded (`cfg.n_heads_padded`,
+Port of `repro.models.transformer`, every family (GQA, optional QKV
+bias, RoPE, SwiGLU or routed experts, full causal or sliding-window
+attention, tied or untied head; hybrid blocks run Mamba-2-style SSM
+heads, `repro_torch.models.mamba`, beside attention on the same normed
+input and average the two; rwkv blocks are a time-mix and a
+channel-mix, `repro_torch.models.rwkv`, with no attention and no K/V
+cache; enc-dec models run a non-causal encoder over stub frame
+embeddings plus sinusoidal positions, and each decoder block adds cross
+attention to the encoder's output between self-attention and the MLP;
+vision models run groups of `cross_attn_every - 1` self blocks and one
+cross block, which adds cross attention to stub image-patch embeddings,
+`batch["patches"]`, given as they are).  Parameter names, shapes, dtypes
+and the logical-axes trees (params and decode state) are the
+reference's: blocks are stacked on a leading (L, ...) layer axis (a
+vision model's self blocks on (G, per-1, ...), its cross blocks on (G,
+...)) and heads are stored padded (`cfg.n_heads_padded`,
 `cfg.n_kv_heads_padded`), so every flattened leaf path
 (`params/blocks/attn/wq`, `params/blocks/xattn/wk`,
-`params/enc_blocks/mlp/wi`, `params/blocks/tm/wr`, `decode/layers/k`,
-`decode/layers/xk`, `decode/layers/ssm`, `decode/layers/la`, ...) is the
-same in both packages and images move between them.  The vision
-cross-attention family raises `NotImplementedError`; ROADMAP.md queues
-it.
+`params/enc_blocks/mlp/wi`, `params/blocks/tm/wr`,
+`params/self_blocks/attn/wq`, `params/cross_blocks/lnx`,
+`decode/layers/k`, `decode/layers/xk`, `decode/layers/ssm`,
+`decode/layers/la`, ...) is the same in both packages and images move
+between them.
 
 Decode is functional, as the reference's: `decode_step` returns a new
 state and leaves the one it was given as it was (a live image taken
@@ -31,14 +34,17 @@ copy at a host integer slot, a hybrid block's new SSM state and conv
 tail, and an rwkv block's new `la` state and token-shift states, over
 its layer's slices of the copy; the cross K/V (`xk`, `xv`), written
 once by prefill, pass into the new state uncopied (the reference's
-`dict(lcache)`).  `pos` is read to the host once per step.
+`dict(lcache)`).  `pos` is read to the host once per step.  A vision
+model's cross layer decodes as the reference's does, as pure cross
+attention: no `ln1`, no self-attention and no self K/V (its forward
+runs them; ROADMAP.md section C).
 
 Remat: with `rc.remat_policy` other than "none", each block (encoder
 blocks too) runs under `torch.utils.checkpoint` (non-reentrant) and
 saves only its inputs, the reference's "full" policy: a decoder block's
-inputs are its stream and the encoder's output, so the gradient of all
-its cross attentions reaches the encoder.  The port has no per-name save
-policies, so "dots" and "comm" act as "full".
+inputs are its stream and the encoder's output (or the image patches),
+so the gradient of all its cross attentions reaches the encoder.  The
+port has no per-name save policies, so "dots" and "comm" act as "full".
 """
 from __future__ import annotations
 
@@ -55,16 +61,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    """Dense, MoE, hybrid-SSM and rwkv decoders, with or without
-    sliding-window attention, and enc-dec models are ported; vision
-    cross-attention is not yet."""
-    if cfg.cross_attn_every:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: vision cross-attention is not ported to "
-            f"repro_torch yet (ROADMAP.md, section A)")
+from repro_torch.tree import tree_map
 
 
 # ==========================================================================
@@ -140,7 +137,6 @@ def _prepend_layers(logical):
 def init_params(cfg: ModelConfig, generator, device) -> Tuple[Dict, Dict]:
     """Returns (params, logical_axes) trees.  `generator` None (for the
     meta device) makes shapes only."""
-    _require_ported(cfg)
     params: Dict[str, Any] = {}
     logical: Dict[str, Any] = {}
     params["embed"], logical["embed"] = L.init_embed(
@@ -151,6 +147,18 @@ def init_params(cfg: ModelConfig, generator, device) -> Tuple[Dict, Dict]:
     if cfg.rwkv:
         params["blocks"], logical["blocks"] = _init_rwkv_blocks(
             generator, cfg, device)
+    elif cfg.cross_attn_every:
+        # G groups of (per - 1) self blocks + 1 cross block; the layers
+        # past G * per are dropped, as in the reference
+        per = cfg.cross_attn_every
+        G = cfg.n_layers // per
+        selfs, lg = _init_dense_blocks(generator, cfg, device, G * (per - 1),
+                                       cross=False)
+        params["self_blocks"] = tree_map(
+            lambda t: t.reshape(G, per - 1, *t.shape[1:]), selfs)
+        logical["self_blocks"] = _prepend_layers(lg)
+        params["cross_blocks"], logical["cross_blocks"] = _init_dense_blocks(
+            generator, cfg, device, G, cross=True)
     else:
         params["blocks"], logical["blocks"] = _init_dense_blocks(
             generator, cfg, device, cfg.n_layers, cross=cfg.enc_dec)
@@ -281,14 +289,16 @@ def _encode(params, cfg, rc, rules, frames):
 
 def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
             want_cache: bool = False):
-    """Full-sequence forward.  batch: tokens (B,S) [+ frames (B,Te,d)].
+    """Full-sequence forward.  batch: tokens (B,S) [+ frames (B,Te,d) |
+    patches (B,Tv,d)].
 
     Returns (hidden (B,S,d), aux-losses, caches | None); caches are
     {"k", "v"} stacked (L, B, T, K, hd), for enc-dec models also the
     cross K/V {"xk", "xv"} (L, B, Te, K, hd), for hybrid blocks {"ssm"}
     (L, B, H, N, hd) f32 and {"conv"} (L, B, 3, d_in); for rwkv blocks
-    {"la"} (L, B, H, hd, hd) f32 and {"shift_a", "shift_c"} (L, B, d)."""
-    _require_ported(cfg)
+    {"la"} (L, B, H, hd, hd) f32 and {"shift_a", "shift_c"} (L, B, d);
+    for vision models the self blocks' {"k", "v"} (G, per-1, B, T, K,
+    hd) and the cross blocks' {"xk", "xv"} (G, B, Tv, K, hd)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     dtype = getattr(torch, rc.dtype)
@@ -297,9 +307,8 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
     enc_out = None
     if cfg.enc_dec:
         enc_out = _encode(params, cfg, rc, rules, batch["frames"].to(dtype))
-    # unbind once per stacked leaf: its backward stacks the L layer
-    # grads in one pass instead of L full-size scatters
-    blocks = _unbind_layers(params["blocks"])
+    if cfg.cross_attn_every:
+        enc_out = batch["patches"].to(dtype)
 
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -312,22 +321,53 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
         return x, aux.get("moe_aux", zero), cache
 
     moe_aux = zero
-    caches = []
-    for i in range(cfg.n_layers):
-        p = _layer_params(blocks, i)
+    caches, self_caches = [], []
+    for p, group_self in _layer_order(params, cfg):
+        e = None if group_self else enc_out
         if want_cache:
-            x, a, cache = block(x, p, enc_out)
-            caches.append(cache)
+            x, a, cache = block(x, p, e)
+            (self_caches if group_self else caches).append(cache)
         else:
-            x, a = _remat(rc, lambda x, p, e: block(x, p, e)[:2], x, p,
-                          enc_out)
-        moe_aux = moe_aux + a
+            x, a = _remat(rc, lambda x, p, e: block(x, p, e)[:2], x, p, e)
+        if not group_self:      # the reference counts no self block's aux
+            moe_aux = moe_aux + a
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     stacked = None
-    if want_cache:
-        stacked = {key: torch.stack([c[key] for c in caches])
-                   for key in caches[0]}
+    if want_cache and cfg.cross_attn_every:
+        # a cross block's own K/V are not kept, as in the reference
+        stacked = {key: t.unflatten(0, (len(caches), -1)) for key, t in
+                   _stack(self_caches, ("k", "v")).items()}
+        stacked.update(_stack(caches, ("xk", "xv")))
+    elif want_cache:
+        stacked = _stack(caches, caches[0])
     return x, {"moe_aux": moe_aux}, stacked
+
+
+def _stack(caches, keys):
+    return {key: torch.stack([c[key] for c in caches]) for key in keys}
+
+
+def _layer_order(params, cfg):
+    """The decoder's blocks in the order they run, as (params,
+    group_self) pairs.  `group_self` marks a vision group's self block:
+    it sees no patches, and its MoE aux is not counted (the reference's
+    `self_body`).  Each stacked leaf is unbound once: its backward stacks
+    the layer grads in one pass instead of one full-size scatter a
+    layer."""
+    if not cfg.cross_attn_every:
+        blocks = _unbind_layers(params["blocks"])
+        return [(_layer_params(blocks, i), False)
+                for i in range(cfg.n_layers)]
+    per = cfg.cross_attn_every - 1
+    selfs = _unbind_layers(tree_map(lambda t: t.flatten(0, 1),
+                                    params["self_blocks"]))
+    crosses = _unbind_layers(params["cross_blocks"])
+    order = []
+    for g in range(cfg.n_layers // cfg.cross_attn_every):
+        order += [(_layer_params(selfs, g * per + j), True)
+                  for j in range(per)]
+        order.append((_layer_params(crosses, g), False))
+    return order
 
 
 def _unbind_layers(tree):
@@ -370,9 +410,10 @@ def init_decode_state(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig,
     (L, B, T, K, hd), plus for hybrid blocks the SSM state (L, B, H, N,
     d_in/H) f32 and the conv tail (L, B, 3, d_in), for enc-dec models the
     cross K/V (L, B, Te, K, hd); for rwkv blocks no K/V, but the `la`
-    state (L, B, H, hd, hd) f32 and the token-shift states (L, B, d).  On
-    `device` (None -> cuda, or raises)."""
-    _require_ported(cfg)
+    state (L, B, H, hd, hd) f32 and the token-shift states (L, B, d); for
+    vision models the self blocks' K/V (G, per-1, B, T, K, hd) and the
+    cross blocks' cross K/V (G, B, Tv, K, hd), nothing else.  On `device`
+    (None -> cuda, or raises)."""
     device = resolve_device(device)
     Lh, B = cfg.n_layers, shape.global_batch
     dt = getattr(torch, rc.dtype)
@@ -387,6 +428,16 @@ def init_decode_state(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig,
             "shift_c": torch.zeros((Lh, B, cfg.d_model), dtype=dt,
                                    device=device)}}
     T = _kv_capacity(cfg, shape.seq_len)
+    if cfg.cross_attn_every:
+        per = cfg.cross_attn_every
+        G, Kp, hd = cfg.n_layers // per, cfg.n_kv_heads_padded, cfg.head_dim
+        kv_shape = (G, per - 1, B, T, Kp, hd)
+        xkv = (G, B, cfg.vision_tokens, Kp, hd)
+        return {"pos": pos, "layers": {
+            "k": torch.zeros(kv_shape, dtype=dt, device=device),
+            "v": torch.zeros(kv_shape, dtype=dt, device=device),
+            "xk": torch.zeros(xkv, dtype=dt, device=device),
+            "xv": torch.zeros(xkv, dtype=dt, device=device)}}
     kv_shape = (Lh, B, T, cfg.n_kv_heads_padded, cfg.head_dim)
     layers = {"k": torch.zeros(kv_shape, dtype=dt, device=device),
               "v": torch.zeros(kv_shape, dtype=dt, device=device)}
@@ -406,12 +457,16 @@ def init_decode_state(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig,
 
 def decode_state_logical(cfg: ModelConfig):
     """Logical axes for the decode state (for the checkpoint manifest)."""
-    _require_ported(cfg)
     if cfg.rwkv:
         return {"pos": (), "layers": {
             "la": (None, "batch", "heads", None, None),
             "shift_a": (None, "batch", None),
             "shift_c": (None, "batch", None)}}
+    if cfg.cross_attn_every:
+        kv6 = (None, None, "batch", "cache_time", "kv_heads", None)
+        xkv = (None, "batch", None, "kv_heads", None)
+        return {"pos": (), "layers": {"k": kv6, "v": kv6, "xk": xkv,
+                                      "xv": xkv}}
     kv = (None, "batch", "cache_time", "kv_heads", None)
     lay = {"k": kv, "v": kv}
     if cfg.ssm_state:
@@ -444,16 +499,28 @@ def _decode_mixer_block(cfg, rc, rules, p, x, lcache, pos: int):
         a_out = (a_out + m_out) * 0.5
     x = x + a_out
     if "xattn" in p and "xk" in lcache:
-        hx = L.rms_norm(x, p["lnx"], cfg.norm_eps)
-        qx = torch.einsum("bsd,dhk->bshk", hx, p["xattn"]["wq"].to(hx.dtype))
-        Te = lcache["xk"].shape[1]
-        ox = attn.decode_attention(qx, lcache["xk"], lcache["xv"], Te - 1)
-        ox = ox * attn.head_mask(cfg, ox.device)[None, None, :, None].to(
-            ox.dtype)
-        x = x + attn.out_proj(p["xattn"], ox)
+        x = _decode_cross(cfg, p, x, lcache["xk"], lcache["xv"])
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, _ = _ffn(cfg, rules, p, h2)
     return x + y
+
+
+def _decode_cross(cfg, p, x, xk, xv):
+    """One token's cross attention to every position of `xk`/`xv` (B, Te,
+    K, hd), added to the stream."""
+    hx = L.rms_norm(x, p["lnx"], cfg.norm_eps)
+    qx = torch.einsum("bsd,dhk->bshk", hx, p["xattn"]["wq"].to(hx.dtype))
+    ox = attn.decode_attention(qx, xk, xv, xk.shape[1] - 1)
+    ox = ox * attn.head_mask(cfg, ox.device)[None, None, :, None].to(ox.dtype)
+    return x + attn.out_proj(p["xattn"], ox)
+
+
+def _decode_vision_cross_block(cfg, p, x, xk, xv):
+    """A vision group's cross layer, one token, as the reference decodes
+    it: pure cross attention, then the MLP.  Unlike its forward, it runs
+    no `ln1` and no self-attention and keeps no self K/V."""
+    x = _decode_cross(cfg, p, x, xk, xv)
+    return x + L.mlp_apply(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
 def _decode_rwkv_block(cfg, p, x, lcache):
@@ -493,19 +560,30 @@ def decode_step(params, cfg: ModelConfig, rc: RunConfig, rules, state, token):
 
     The given state is left as it was: the leaves the step writes are
     copied first, and the cross K/V are shared with the new state."""
-    _require_ported(cfg)
     dtype = getattr(torch, rc.dtype)
     x = L.embed_apply(params["embed"], token, dtype)
     pos = int(state["pos"])              # the step's one host copy of pos
     caches = {key: c if key in _READ_ONLY else c.clone()
               for key, c in state["layers"].items()}
-    for i in range(cfg.n_layers):
-        p = _layer_params(params["blocks"], i)
-        lcache = {key: c[i] for key, c in caches.items()}
-        if cfg.rwkv:
-            x = _decode_rwkv_block(cfg, p, x, lcache)
-        else:
-            x = _decode_mixer_block(cfg, rc, rules, p, x, lcache, pos)
+    if cfg.cross_attn_every:
+        per = cfg.cross_attn_every - 1
+        for g in range(cfg.n_layers // cfg.cross_attn_every):
+            for j in range(per):
+                x = _decode_mixer_block(
+                    cfg, rc, rules, _layer_params(params["self_blocks"],
+                                                  (g, j)),
+                    x, {"k": caches["k"][g, j], "v": caches["v"][g, j]}, pos)
+            x = _decode_vision_cross_block(
+                cfg, _layer_params(params["cross_blocks"], g), x,
+                caches["xk"][g], caches["xv"][g])
+    else:
+        for i in range(cfg.n_layers):
+            p = _layer_params(params["blocks"], i)
+            lcache = {key: c[i] for key, c in caches.items()}
+            if cfg.rwkv:
+                x = _decode_rwkv_block(cfg, p, x, lcache)
+            else:
+                x = _decode_mixer_block(cfg, rc, rules, p, x, lcache, pos)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return _logits(params, cfg, x), {"pos": state["pos"] + 1,
                                      "layers": caches}
@@ -528,7 +606,8 @@ def prefill(params, cfg: ModelConfig, rc: RunConfig, rules, batch):
     logits = _logits(params, cfg, x[:, -1])
     if not cfg.rwkv and not cfg.sliding_window:
         # full-attention KV caches need headroom for subsequent decodes
-        # (the time axis is ndim-3 of (L, B, T, K, hd)); the cross K/V,
+        # (the time axis is ndim-3 of (L, B, T, K, hd) and of vision's
+        # (G, per-1, B, T, K, hd)); the cross K/V,
         # SSM state, conv tail and rwkv states are fixed-size
         for key in ("k", "v"):
             layers[key] = torch.nn.functional.pad(

@@ -5,8 +5,9 @@ decode-state images (bit-identical continuation after a delta-chain
 restore, the SWA ring wrap, MoE capacity drops, the checksum and XOR
 launches of a decode-state image, reduced hymba with a padded KV head
 and reduced rwkv6-3b with a padded head and reduced whisper-large-v3
-with padded KV heads: a train step and a decode step against the CPU and
-its decode-state image), and the wire codec and worlds with
+with padded KV heads and reduced llama-3.2-vision-11b with padded
+heads: a train step and a decode step against the CPU and its
+decode-state image), and the wire codec and worlds with
 rank state on the card (`SnapshotCodec` blobs from CUDA tensors equal
 those from CPU tensors, `decode_chain(device="cuda")` equals the host
 decode, a 2-rank socket world of card shards commits and restores).
@@ -552,6 +553,73 @@ def test_encdec_padded_train_step_and_decode_image_on_card(dev, tmp_path):
     lc, sc = serve(params, sc, toks[:, :1])
     lg, sg = serve(card, sg, toks[:, :1].to(dev))
     _f32_close(lg, lc)
+    assert sorted(sg["layers"]) == ["k", "v", "xk", "xv"]
+    for key in sg["layers"]:
+        _f32_close(sg["layers"][key], sc["layers"][key])
+    mgr.save(2, {"decode": sg}, {"decode": T.decode_state_logical(cfg)})
+    assert cops.launches == c0 + 15 and dops.launches == x0 + 5
+    got, _ = mgr.restore(2)
+    for key in sg["layers"]:
+        assert torch.equal(got["decode"]["layers"][key], sg["layers"][key])
+    assert got["decode"]["layers"]["xk"].device.type == "cuda"
+
+
+def test_vision_padded_train_step_and_decode_image_on_card(dev, tmp_path):
+    """Reduced llama-3.2-vision-11b with padded heads (6 over 2 KV heads
+    stored as 8 over 2): a train step's loss on the card agrees with the
+    CPU and every gradient to 1e-3 of its norm (float32; random-init
+    depth amplifies rounding, as tests/test_torch_model.py holds the
+    vision gradients); prefill and two decode steps on the card agree
+    with the CPU, the 6-D self K/V and the cross K/V included; a
+    decode-state image digests its 5 leaves (checksum), a delta image
+    XORs them (the cross K/V's delta is all zero bytes), and the restore
+    gives the live state back bit for bit."""
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.training.step import make_serve_steps
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = reduced_config(ARCHS["llama-3.2-vision-11b"], n_heads=6,
+                         n_kv_heads=2, head_dim=8, pad_to=4)
+    assert (cfg.n_heads_padded, cfg.n_kv_heads_padded) == (8, 2)
+    rc = RunConfig(model=cfg, shape=ShapeConfig("s", 64, 2, "train"),
+                   loss_chunk=32, attn_chunk=16, dtype="float32")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(9)
+    params, _ = T.init_params(cfg, gen, "cpu")
+    batch = SyntheticDataset(cfg, rc.shape, seed=9).get_batch(0)
+
+    def loss_and_grads(device):
+        leaves = [p.to(device).requires_grad_(True)
+                  for p in tree_leaves(params)]
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        loss, _ = T.forward_loss(tree_unflatten(params, leaves), cfg, rc,
+                                 None, b)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    lg, gg = loss_and_grads(dev)
+    lc, gc = loss_and_grads("cpu")
+    _f32_close(lg, lc)
+    for path, a, b in zip(_leaf_paths(params), gg, gc):
+        a, b = a.cpu().double(), b.double()
+        assert float((a - b).norm() / b.norm()) < 1e-3, path
+
+    prefill, serve = make_serve_steps(cfg, rc)
+    toks = torch.from_numpy(batch["tokens"])
+    patches = torch.from_numpy(batch["patches"])
+    card = tree_map(lambda t: t.to(dev), params)
+    _, sc = prefill(params, {"tokens": toks, "patches": patches})
+    _, sg = prefill(card, {"tokens": toks.to(dev),
+                           "patches": patches.to(dev)})
+    assert sg["layers"]["k"].dim() == 6
+    mgr = CheckpointManager(str(tmp_path), delta_keys=("decode",), device=dev)
+    c0, x0 = cops.launches, dops.launches
+    mgr.save(1, {"decode": sg}, {"decode": T.decode_state_logical(cfg)})
+    for i in range(2):
+        lc, sc = serve(params, sc, toks[:, i:i + 1])
+        lg, sg = serve(card, sg, toks[:, i:i + 1].to(dev))
+        _f32_close(lg, lc)
     assert sorted(sg["layers"]) == ["k", "v", "xk", "xv"]
     for key in sg["layers"]:
         _f32_close(sg["layers"][key], sc["layers"][key])

@@ -2,8 +2,8 @@
 (`python -m repro_torch.launch.train`), the quickstart and preemption
 twins, and the runtime's process-wide footprint (the SIGUSR1 handler,
 the deterministic-algorithms switch).  Reduced qwen2-0.5b, and reduced
-hymba-1.5b, rwkv6-3b and whisper-large-v3 for a fresh / resumed /
-uninterrupted CLI run each, B 2 x S 64,
+hymba-1.5b, rwkv6-3b, whisper-large-v3 and llama-3.2-vision-11b for a
+fresh / resumed / uninterrupted CLI run each, B 2 x S 64,
 `--device cpu`; the CLI and the quickstart run in subprocesses, the
 independent ones side by side, shared through a module-scoped fixture.
 
@@ -43,6 +43,7 @@ PORT = [sys.executable, "-m", "repro_torch.launch.train", *FLAGS,
 HYBRID = [*PORT[:4], "hymba-1.5b", *PORT[5:]]
 RWKV = [*PORT[:4], "rwkv6-3b", *PORT[5:]]
 WHISPER = [*PORT[:4], "whisper-large-v3", *PORT[5:]]
+VISION = [*PORT[:4], "llama-3.2-vision-11b", *PORT[5:]]
 REFERENCE = [sys.executable, "-m", "repro.launch.train", *FLAGS]
 ENV = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
 
@@ -90,6 +91,8 @@ def runs(tmp_path_factory):
         "rwkv6": _start(RWKV + ["--steps", "6"], d / "w6"),
         "whisper_fresh": _start(WHISPER + ["--steps", "4"], d / "e"),
         "whisper6": _start(WHISPER + ["--steps", "6"], d / "e6"),
+        "vision_fresh": _start(VISION + ["--steps", "4"], d / "v"),
+        "vision6": _start(VISION + ["--steps", "6"], d / "v6"),
     }
     out = {k: _finish(p) for k, p in first.items()}
     second = {
@@ -106,6 +109,8 @@ def runs(tmp_path_factory):
         "rwkv_resume": _start(RWKV + ["--steps", "2", "--resume"], d / "w"),
         "whisper_resume": _start(WHISPER + ["--steps", "2", "--resume"],
                                  d / "e"),
+        "vision_resume": _start(VISION + ["--steps", "2", "--resume"],
+                                d / "v"),
     }
     out.update({k: _finish(p) for k, p in second.items()})
     out["dir"] = d
@@ -180,6 +185,25 @@ def test_cli_encdec_resume_repeats_the_uninterrupted_run(runs):
     assert arrays["params/enc_blocks/attn/wq"]["base_step"] == 2
     assert arrays["params/blocks/xattn/wk"]["base_step"] == 2
     assert arrays["opt/v/enc_ln_f"]["dtype"] == "float32"
+
+
+def test_cli_vision_resume_repeats_the_uninterrupted_run(runs):
+    """`--arch llama-3.2-vision-11b --reduced`: 4 steps fresh, `--resume`
+    for 2; the resumed losses equal the uninterrupted run's steps 4-5,
+    and the images hold the self and cross blocks as XOR deltas."""
+    lines, resumed = runs["vision_resume"]
+    assert VISION[3:5] == ["--arch", "llama-3.2-vision-11b"]
+    assert runs["vision_fresh"][0][0] == "initialized fresh"
+    assert lines[0] == "resumed from step 4"
+    assert [h["step"] for h in resumed] == [4, 5]
+    assert _losses(resumed) == _losses(runs["vision6"][1])
+    assert all(math.isfinite(h["loss"]) for h in runs["vision6"][1])
+    with open(os.path.join(runs["dir"], "v", "ckpt_0000000004",
+                           "manifest.json")) as f:
+        arrays = json.load(f)["arrays"]
+    assert arrays["params/self_blocks/attn/wq"]["base_step"] == 2
+    assert arrays["params/cross_blocks/xattn/wk"]["base_step"] == 2
+    assert arrays["opt/v/cross_blocks/lnx"]["dtype"] == "float32"
 
 
 def test_cli_socket_transport_and_int8_moments_resume(runs):

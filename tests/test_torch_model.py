@@ -1,16 +1,19 @@
-"""The port's dense, hybrid-SSM, RWKV-6 and encoder-decoder models
-(layers, GQA flash attention, loss, gradients) against the JAX package
-at reduced qwen2-0.5b, reduced hymba-1.5b, reduced rwkv6-3b and reduced
-whisper-large-v3, each unpadded and with padded heads masked (qwen2 with
+"""The port's dense, hybrid-SSM, RWKV-6, encoder-decoder and vision
+cross-attention models (layers, GQA flash attention, loss, gradients)
+against the JAX package at reduced qwen2-0.5b, reduced hymba-1.5b,
+reduced rwkv6-3b, reduced whisper-large-v3 and reduced
+llama-3.2-vision-11b, each unpadded and with padded heads masked (qwen2 with
 `pad_to=16`; hymba padded as 25 heads over 5 KV heads, stored as 48 over
 6, the padding of the full-width config, so a dummy KV group runs; rwkv
 as 5 heads stored as 6, padding without grouping as rwkv6-3b's 40 heads
 are stored as 48, with `pad_to=2` so that the 256-entry vocabulary
 stays unpadded; whisper as 5 heads over 5 KV heads stored as 8 over 8,
 KV heads padded without grouping as the full-width config's 20 are
-stored as 32, in self and cross attention, encoder and decoder).  Both
-packages get the same inputs and the same parameters: the JAX init,
-carried over with `repro_torch.convert.state_from_numpy`.
+stored as 32, in self and cross attention, encoder and decoder; vision
+as 6 heads over 2 KV heads stored as 8 over 2, and also in two groups
+of two self blocks and a cross block, "vision-2g").  Both packages get
+the same inputs and the same parameters: the JAX init, carried over
+with `repro_torch.convert.state_from_numpy`.
 
 Tolerances:
   * float32 compute (`RunConfig(dtype="float32")`): rtol 1e-4, with an
@@ -36,6 +39,20 @@ Tolerances:
     the f32 gradients in the reference (zero would sit at 100%); on a
     leaf where the reference's bf16 gradient is 50% or more from the
     f32 one, the port's must stay within 1.5x the reference's distance.
+  * reduced llama-3.2-vision-11b is held to the reference's own accuracy
+    too.  Its float32 gradients agree to 1e-3 of their norm (1e-2 for
+    two groups): perturbing each of the reference's parameters by one
+    rounding (a relative 2^-24) moves its own gradients by up to 6.4e-5
+    (one group), 2.4e-5 (padded) and 3.8e-3 (two groups) of their norm,
+    where the port sits at 1.1e-4, 2.9e-5 and 3.0e-3.  Its bf16
+    gradients sit 35-195% (median over leaves, init seeds 3-5) from the
+    f32 ones in the reference, beyond 100% where zero would sit: the
+    gradients through its peaked attention are mostly rounding noise, in
+    both packages, while each cross block agrees with the reference's to
+    bf16 rounding (tests/test_torch_vision.py).  The port's distance
+    from the f32 gradient must stay within 2x the reference's, plus
+    1e-2: the largest ratio on a leaf was 1.81 over init seeds 0-5 (one
+    group) and 1.20 over seeds 3-5 (two groups, padded).
 """
 import jax
 import jax.numpy as jnp
@@ -100,18 +117,24 @@ RWKV_PAD = dict(n_heads=5, n_kv_heads=5, head_dim=8, pad_to=2)
 # reduced whisper-large-v3 with KV heads padded and no grouping: 5 over 5
 # stored as 8 over 8
 WHISPER_PAD = dict(n_heads=5, n_kv_heads=5, head_dim=8, pad_to=8)
+# reduced llama-3.2-vision-11b in two groups of two self blocks and one
+# cross block, and with padded heads: 6 over 2 KV heads stored as 8 over 2
+VISION_2G = dict(n_layers=6, cross_attn_every=3)
+VISION_PAD = dict(n_heads=6, n_kv_heads=2, head_dim=8, pad_to=4)
 
 
 @pytest.fixture(scope="module", params=[
     ("qwen2-0.5b", dict(pad_to=1)), ("qwen2-0.5b", dict(pad_to=16)),
     ("hymba-1.5b", {}), ("hymba-1.5b", HYMBA_PAD),
     ("rwkv6-3b", {}), ("rwkv6-3b", RWKV_PAD),
-    ("whisper-large-v3", {}), ("whisper-large-v3", WHISPER_PAD)],
+    ("whisper-large-v3", {}), ("whisper-large-v3", WHISPER_PAD),
+    ("llama-3.2-vision-11b", {}), ("llama-3.2-vision-11b", VISION_2G),
+    ("llama-3.2-vision-11b", VISION_PAD)],
     ids=["unpadded", "pad16", "hymba", "hymba-pad16", "rwkv", "rwkv-pad",
-         "whisper", "whisper-pad"])
+         "whisper", "whisper-pad", "vision", "vision-2g", "vision-pad"])
 def model(request):
     """(jax cfg, port cfg, numpy params) for reduced qwen2-0.5b,
-    hymba-1.5b, rwkv6-3b or whisper-large-v3."""
+    hymba-1.5b, rwkv6-3b, whisper-large-v3 or llama-3.2-vision-11b."""
     arch, overrides = request.param
     jcfg = jreduced(JARCHS[arch], **overrides)
     cfg = reduced_config(ARCHS[arch], **overrides)
@@ -119,7 +142,7 @@ def model(request):
     rng = np.random.RandomState(4)
     params = jax.tree.map(lambda x: np.asarray(x), params)
     # nonzero biases and SSM constants so their paths are exercised
-    blocks = params["blocks"]
+    blocks = params.get("blocks", {})
     for k in ("bq", "bk", "bv"):
         if k in blocks.get("attn", {}):
             blocks["attn"][k] = (rng.randn(*blocks["attn"][k].shape) * 0.1
@@ -142,6 +165,8 @@ def model(request):
         assert (cfg.n_heads_padded, cfg.vocab_padded) == (6, cfg.vocab_size)
     if arch == "whisper-large-v3" and overrides:
         assert cfg.padded_heads() == (8, 1)
+    if overrides is VISION_PAD:
+        assert (cfg.n_heads_padded, cfg.n_kv_heads_padded) == (8, 2)
     return jcfg, cfg, params
 
 
@@ -182,8 +207,9 @@ def test_layers_match_reference(model, dtype):
            _jnp(jL.apply_rope(_j(xr, dtype), jnp.asarray(pos),
                               jcfg.rope_theta)), dtype)
 
-    if "mlp" in params["blocks"]:
-        mlp = {k: v[0] for k, v in params["blocks"]["mlp"].items()}
+    blocks = params.get("blocks") or params.get("cross_blocks")
+    if "mlp" in blocks:
+        mlp = {k: v[0] for k, v in blocks["mlp"].items()}
         _close(_tnp(L.mlp_apply(state_from_numpy(mlp, "cpu"), _t(x, dtype))),
                _jnp(jL.mlp_apply(jax.tree.map(jnp.asarray, mlp),
                                  _j(x, dtype))), dtype)
@@ -304,6 +330,11 @@ def test_forward_loss_and_grads_match_reference(model, dtype):
             if cfg.enc_dec and path.startswith("enc_blocks/"):
                 # norm-relative (see the module docstring)
                 assert _rel(_tnp(g), jflat[path]) < 1e-3, path
+            elif cfg.cross_attn_every:
+                # norm-relative (see the module docstring)
+                groups = cfg.n_layers // cfg.cross_attn_every
+                tol = 1e-2 if groups > 1 else 1e-3
+                assert _rel(_tnp(g), jflat[path]) < tol, path
             else:
                 _close(_tnp(g), jflat[path], dtype)
     else:
@@ -317,6 +348,9 @@ def test_forward_loss_and_grads_match_reference(model, dtype):
                 # the reference's bf16 gradient is at most twice as close
                 # to the f32 one as zero is (see the module docstring)
                 assert ours <= 1.5 * theirs, (path, ours, theirs)
+            elif cfg.cross_attn_every:
+                # (see the module docstring)
+                assert ours <= 2 * theirs + 1e-2, (path, ours, theirs)
             else:
                 assert ours <= 1.25 * theirs + 1e-2, (path, ours, theirs)
     if cfg.n_heads_padded != cfg.n_heads:
@@ -326,8 +360,10 @@ def test_forward_loss_and_grads_match_reference(model, dtype):
         for path in (["blocks/tm/wr"] if cfg.rwkv else
                      ["blocks/attn/wq", "blocks/xattn/wq",
                       "enc_blocks/attn/wq"] if cfg.enc_dec else
+                     ["self_blocks/attn/wq", "cross_blocks/attn/wq",
+                      "cross_blocks/xattn/wq"] if cfg.cross_attn_every else
                      ["blocks/attn/wq"]):
-            assert not _tnp(named[path])[:, :, dead].any(), path
+            assert not _tnp(named[path])[..., dead, :].any(), path
 
 
 def state_to_numpy_j(tree):

@@ -4,19 +4,22 @@ packages: a JAX image restores in the port and a port image restores
 in the JAX `CheckpointManager`, with delta params and int8 moments on;
 training images of reduced qwen2-0.5b, hymba-1.5b (its SSM leaves:
 (L, 16) f32 constants, the conv weights), rwkv6-3b (its time-mix and
-channel-mix leaves) and whisper-large-v3 (its encoder stack, `enc_ln_f`
-and the decoder's cross attention), and decode-state images of reduced
-Mixtral, hymba, rwkv6-3b and whisper (bf16 caches, hymba's f32 SSM state
-and bf16 conv tail, rwkv's f32 `la` state and bf16 token-shift states,
-whisper's bf16 cross K/V, unchanged between the two images, the 0-d
-int32 pos).
+channel-mix leaves), whisper-large-v3 (its encoder stack, `enc_ln_f`
+and the decoder's cross attention) and llama-3.2-vision-11b (its
+(G, per-1, ...) self blocks and (G, ...) cross blocks), and decode-state
+images of reduced Mixtral, hymba, rwkv6-3b, whisper and vision (bf16
+caches, hymba's f32 SSM state and bf16 conv tail, rwkv's f32 `la` state
+and bf16 token-shift states, whisper's and vision's bf16 cross K/V,
+unchanged between the two images, vision's 6-D self K/V, the 0-d int32
+pos).
 
 Tolerance: none for images — restored params, steps, digests and chunk
 bytes are compared exactly.  The one cross-package resume compares
 losses at rtol 1e-4 (float32 compute; the model agrees to that, see
-tests/test_torch_model.py); for whisper the second resumed step's loss,
-which follows an update from each package's own gradient, at rtol 1e-3
-(its encoder gradients agree to 1e-3 of their norm, that file).
+tests/test_torch_model.py); for whisper and vision the second resumed
+step's loss, which follows an update from each package's own gradient,
+at rtol 1e-3 (whisper's encoder gradients and vision's gradients agree
+to 1e-3 of their norm, that file).
 """
 import json
 import os
@@ -232,6 +235,11 @@ def test_jax_encdec_image_restores_in_port(tmp_path):
     _check_jax_image_restores_in_port(tmp_path, "whisper-large-v3")
 
 
+def test_jax_vision_image_restores_in_port(tmp_path):
+    """The same for reduced llama-3.2-vision-11b."""
+    _check_jax_image_restores_in_port(tmp_path, "llama-3.2-vision-11b")
+
+
 def _check_jax_image_restores_in_port(tmp_path, arch):
     hist, live = _jax_run(tmp_path, steps=6, arch=arch, dtype="float32")
     want, jextra = JCheckpointManager(str(tmp_path)).restore(4)
@@ -250,6 +258,9 @@ def _check_jax_image_restores_in_port(tmp_path, arch):
     if arch == "whisper-large-v3":
         assert {"params/enc_blocks/attn/wq", "params/enc_ln_f",
                 "opt/m/blocks/xattn/wk", "params/blocks/lnx"} <= set(got)
+    if arch == "llama-3.2-vision-11b":
+        assert {"params/self_blocks/attn/wq", "opt/v/cross_blocks/xattn/wk",
+                "params/cross_blocks/lnx"} <= set(got)
 
     cfg = reduced_config(ARCHS[arch])
     rt = _rt(cfg, _rc(cfg, dtype="float32"), tmp_path)
@@ -258,9 +269,11 @@ def _check_jax_image_restores_in_port(tmp_path, arch):
     want = [h["loss"] for h in hist][4:6]
     np.testing.assert_allclose(resumed[0], want[0], rtol=1e-4)
     # step 5 follows one update from each package's own step-4 gradient;
-    # enc-dec encoder gradients agree to 1e-3 of their norm only
-    np.testing.assert_allclose(resumed[1], want[1],
-                               rtol=1e-3 if cfg.enc_dec else 1e-4)
+    # enc-dec encoder gradients and vision gradients agree to 1e-3 of
+    # their norm only
+    np.testing.assert_allclose(
+        resumed[1], want[1],
+        rtol=1e-3 if cfg.enc_dec or cfg.cross_attn_every else 1e-4)
 
 
 def test_port_image_restores_in_jax(tmp_path):
@@ -284,6 +297,11 @@ def test_port_rwkv_image_restores_in_jax(tmp_path):
 def test_port_encdec_image_restores_in_jax(tmp_path):
     """The same for reduced whisper-large-v3."""
     _check_port_image_restores_in_jax(tmp_path, "whisper-large-v3")
+
+
+def test_port_vision_image_restores_in_jax(tmp_path):
+    """The same for reduced llama-3.2-vision-11b."""
+    _check_port_image_restores_in_jax(tmp_path, "llama-3.2-vision-11b")
 
 
 def _check_port_image_restores_in_jax(tmp_path, arch):
@@ -351,9 +369,10 @@ def test_same_state_writes_identical_images(tmp_path):
 # ---------------------------------------------------------------------------
 
 def _jax_decode_states(n=2, arch="mixtral-8x7b"):
-    """Reduced Mixtral (MoE + SWA), hymba (hybrid SSM + SWA) or rwkv6-3b
-    (attention-free): the JAX package's decode states after prefill + 1 and prefill + 2 decode
-    steps, and its numpy params."""
+    """Reduced Mixtral (MoE + SWA), hymba (hybrid SSM + SWA), rwkv6-3b
+    (attention-free), whisper or vision: the JAX package's decode
+    states after prefill + 1 and prefill + 2 decode steps, and its numpy
+    params."""
     import jax.numpy as jnp
 
     from repro.models import transformer as jT
@@ -378,11 +397,15 @@ def _jax_decode_states(n=2, arch="mixtral-8x7b"):
 
 def _prompt(cfg, toks):
     """A prefill batch: int32 tokens, and for enc-dec models (B, Te, d)
-    f32 stub frames from a numpy seed."""
+    f32 stub frames, for vision models (B, Tv, d) f32 stub patches, from a
+    numpy seed."""
     batch = {"tokens": np.asarray(toks, np.int32)}
     if cfg.enc_dec:
         batch["frames"] = np.random.RandomState(6).randn(
             len(toks), cfg.enc_positions, cfg.d_model).astype(np.float32)
+    if cfg.cross_attn_every:
+        batch["patches"] = np.random.RandomState(6).randn(
+            len(toks), cfg.vision_tokens, cfg.d_model).astype(np.float32)
     return batch
 
 
@@ -430,6 +453,13 @@ def test_jax_encdec_decode_image_restores_in_port(tmp_path):
     _check_jax_decode_image_restores_in_port(tmp_path, "whisper-large-v3")
 
 
+def test_jax_vision_decode_image_restores_in_port(tmp_path):
+    """The same for reduced llama-3.2-vision-11b: its (G, per-1, B, T, K,
+    hd) self K/V and (G, B, Tv, K, hd) cross K/V."""
+    _check_jax_decode_image_restores_in_port(tmp_path,
+                                             "llama-3.2-vision-11b")
+
+
 def _check_jax_decode_image_restores_in_port(tmp_path, arch):
     logical, states, _ = _jax_decode_states(arch=arch)
     jmgr = JCheckpointManager(str(tmp_path), delta_keys=("decode",))
@@ -471,6 +501,12 @@ def test_port_rwkv_decode_image_restores_in_jax(tmp_path):
 def test_port_encdec_decode_image_restores_in_jax(tmp_path):
     """The same for reduced whisper-large-v3: its cross K/V too."""
     _check_port_decode_image_restores_in_jax(tmp_path, "whisper-large-v3")
+
+
+def test_port_vision_decode_image_restores_in_jax(tmp_path):
+    """The same for reduced llama-3.2-vision-11b."""
+    _check_port_decode_image_restores_in_jax(tmp_path,
+                                             "llama-3.2-vision-11b")
 
 
 def _check_port_decode_image_restores_in_jax(tmp_path, arch):
@@ -538,6 +574,12 @@ def test_same_encdec_decode_state_writes_identical_images(tmp_path):
     """The same for reduced whisper-large-v3."""
     _check_same_decode_state_writes_identical_images(tmp_path,
                                                      "whisper-large-v3")
+
+
+def test_same_vision_decode_state_writes_identical_images(tmp_path):
+    """The same for reduced llama-3.2-vision-11b."""
+    _check_same_decode_state_writes_identical_images(
+        tmp_path, "llama-3.2-vision-11b")
 
 
 def _check_same_decode_state_writes_identical_images(tmp_path, arch):

@@ -12,10 +12,18 @@ whisper-large-v3 (encoder-decoder: prefill also runs the encoder over
 stub frames and keeps each decoder block's cross K/V, `xk`/`xv`, which
 decode reads and never writes; "whisper-pad" stores 5 heads over 5 KV
 heads as 8 over 8, KV heads padded without grouping as the full-width
-config's 20 are stored as 32), the decode-vs-prefill
-continuation, the port's
-own live-image restore continuation, and the CPU run of the
-`serve_with_snapshot` example twin.  Both packages get
+config's 20 are stored as 32) and reduced llama-3.2-vision-11b (vision
+cross-attention: prefill keeps the self blocks' K/V, (G, per-1, ...),
+and the cross blocks' cross K/V over the stub image patches, which
+decode reads and never writes; "vision-2g" runs two groups of two self
+blocks and a cross block, "vision-pad" stores 6 heads over 2 KV heads
+as 8 over 2; their prefill and decode against the reference are in
+tests/test_torch_vision.py), the decode-vs-prefill continuation (not
+for vision: the reference decodes a cross layer without the
+self-attention its forward runs, so decode does not continue the
+forward, tests/test_torch_vision.py), the port's own live-image restore
+continuation, and the CPU run of the `serve_with_snapshot` example
+twin.  Both packages get
 the same numpy-made inputs; model parameters are the JAX init carried
 over with `repro_torch.convert.state_from_numpy`.
 
@@ -267,7 +275,11 @@ VARIANTS = {"hymba-pad16": ("hymba-1.5b", dict(n_heads=25, n_kv_heads=5,
             "rwkv-pad": ("rwkv6-3b", dict(n_heads=5, n_kv_heads=5,
                                           head_dim=8, pad_to=2)),
             "whisper-pad": ("whisper-large-v3", dict(n_heads=5, n_kv_heads=5,
-                                                     head_dim=8, pad_to=8))}
+                                                     head_dim=8, pad_to=8)),
+            "vision-2g": ("llama-3.2-vision-11b", dict(n_layers=6,
+                                                       cross_attn_every=3)),
+            "vision-pad": ("llama-3.2-vision-11b", dict(
+                n_heads=6, n_kv_heads=2, head_dim=8, pad_to=4))}
 
 
 def _model(arch, dtype):
@@ -286,11 +298,15 @@ def _model(arch, dtype):
 
 def _batch(cfg, toks, seed=7):
     """Prefill inputs: the tokens, and for enc-dec models (B, Te, d) f32
-    stub frames from a numpy seed (numpy in, numpy out)."""
+    stub frames, for vision models (B, Tv, d) f32 stub patches, from a
+    numpy seed (numpy in, numpy out)."""
     batch = {"tokens": toks}
     if cfg.enc_dec:
         batch["frames"] = np.random.RandomState(seed).randn(
             toks.shape[0], cfg.enc_positions, cfg.d_model).astype(np.float32)
+    if cfg.cross_attn_every:
+        batch["patches"] = np.random.RandomState(seed).randn(
+            toks.shape[0], cfg.vision_tokens, cfg.d_model).astype(np.float32)
     return batch
 
 
@@ -360,7 +376,8 @@ def test_prefill_and_decode_match_reference(arch, dtype):
 
 def test_decode_state_layout_matches_reference():
     for arch in ("qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b", "hymba-pad16",
-                 "rwkv6-3b", "rwkv-pad", "whisper-large-v3", "whisper-pad"):
+                 "rwkv6-3b", "rwkv-pad", "whisper-large-v3", "whisper-pad",
+                 "llama-3.2-vision-11b", "vision-2g", "vision-pad"):
         jcfg, cfg, jrc, rc, _ = _model(arch, "bfloat16")
         shape = ShapeConfig("d", 48, 3, "decode")
         ours = T.init_decode_state(cfg, shape, rc, device="cpu")
@@ -400,12 +417,6 @@ def test_decode_matches_prefill_continuation(arch):
                                atol=0.15)
 
 
-def test_unported_families_raise():
-    cfg = reduced_config(ARCHS["llama-3.2-vision-11b"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        T.init_params(cfg, None, "meta")
-
-
 # ---------------------------------------------------------------------------
 # live decode-state images in the port
 # ---------------------------------------------------------------------------
@@ -432,6 +443,14 @@ def test_encdec_decode_step_leaves_its_state_unchanged(arch):
     _check_decode_step_leaves_its_state(arch)
 
 
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "vision-2g"])
+def test_vision_decode_step_leaves_its_state_unchanged(arch):
+    """The same for vision: the self blocks' K/V are copied and written,
+    the cross blocks' cross K/V pass into the new state as they were,
+    uncopied."""
+    _check_decode_step_leaves_its_state(arch)
+
+
 def _check_decode_step_leaves_its_state(arch):
     _, cfg, _, rc, params = _model(arch, "bfloat16")
     tparams = state_from_numpy(params, "cpu")
@@ -445,7 +464,8 @@ def _check_decode_step_leaves_its_state(arch):
     assert sorted(after["layers"]) == sorted(
         ("la", "shift_a", "shift_c") if cfg.rwkv else
         ("k", "v", "ssm", "conv") if cfg.ssm_state else
-        ("k", "v", "xk", "xv") if cfg.enc_dec else ("k", "v"))
+        ("k", "v", "xk", "xv") if cfg.enc_dec or cfg.cross_attn_every else
+        ("k", "v"))
     for key in after["layers"]:
         np.testing.assert_array_equal(after["layers"][key],
                                       before["layers"][key])
@@ -461,12 +481,14 @@ def _check_decode_step_leaves_its_state(arch):
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "mixtral-8x7b", "hymba-1.5b",
                                   "rwkv6-3b", "rwkv-pad", "whisper-large-v3",
-                                  "whisper-pad"])
+                                  "whisper-pad", "llama-3.2-vision-11b",
+                                  "vision-2g"])
 def test_snapshot_restore_continuation_is_bitwise(arch, tmp_path):
     """A full image at token 6 and an XOR-delta image at token 10; a fresh
     manager restores 10 through the chain, and tokens 11-15 with their
-    logits equal the uninterrupted run's bit for bit (for whisper the
-    cross K/V's delta is all zero bytes, restored through the chain)."""
+    logits equal the uninterrupted run's bit for bit (for whisper and
+    vision the cross K/V's delta is all zero bytes, restored through the
+    chain)."""
     _, cfg, _, rc, params = _model(arch, "bfloat16")
     tparams = state_from_numpy(params, "cpu")
     prefill, serve = make_serve_steps(cfg, rc)
