@@ -41,14 +41,27 @@ each fatal on failure:
      (dequantize kernel); params and step bit-identical, moments within
      scale/2, every chunk's manifest digest equal to the numpy
      `checksum_np` of its file;
+  train_mesh: the main path on a `DeviceMesh`: full-width qwen2-0.5b
+     through `MANARuntime(mesh=...)` on a (1 x 1) ("data", "model") mesh
+     over an NCCL world of 1 made in this process (`HashStore`; destroyed
+     at the phase's end), every state leaf a DTensor: 4 steps with
+     XOR-delta images at 2 and 4; step 2 restored onto the mesh must
+     repeat steps 2-3 bit for bit; steps 0-3 are compared with phase 2's
+     mesh-free losses (the largest relative difference is printed; held
+     to the reference's cross-topology rtol 5e-3 if they are not
+     bit-equal); the step-4 image restored without a mesh must equal the
+     mesh state bit for bit; the mesh state saved with int8 moments and
+     restored onto the mesh (params and step bit-identical, moments
+     within scale/2);
   4. report: step times, image bytes, write/restore seconds, peak device
      memory, and one JSON line of the kernels with their launches on the
      main path.  The counts are set to 0 just before each main-path
-     phase (2, 3, the serve phases, the world phases, cli, quickstart,
-     preempt and the train phases) and read just after it, adding the
+     phase (2, 3, train_mesh, the serve phases, the world phases, cli,
+     quickstart, preempt and the train phases) and read just after it, adding the
      counts that a world phase's spawned socket ranks report from their
      own processes; each phase must launch the kernels of its path (2,
-     cli: checksum, XOR; 3: checksum, quantize, dequantize; serving:
+     cli: checksum, XOR; 3: checksum, quantize, dequantize; train_mesh:
+     all four; serving:
      checksum, XOR; world_pipeline and world_cross: XOR; quickstart,
      preempt: checksum; train_moe, train_hybrid, train_rwkv,
      train_whisper, train_vision: all four), and `launches` is their
@@ -716,6 +729,7 @@ def phase_resume(cfg, rc, root: str, report: dict):
     report["resume_writes"] = list(rt.ckpt.stats)
     _check_delta_bases(rt, {2: None, 4: 2, 6: 4}, "phase 2")
     losses = [h["loss"] for h in hist]
+    report["resume_losses"] = losses
     log(f"phase 2: 6 steps, losses {losses}, images {rt.ckpt.steps()}")
     rt.close()
     del rt
@@ -743,31 +757,16 @@ def phase_resume(cfg, rc, root: str, report: dict):
     torch.cuda.empty_cache()
 
 
-def phase_int8(cfg, rc, root: str, report: dict, label: str = "phase 3"):
-    """A runtime with int8 moments writes one image at step 2; restored
-    on the card, params and step are bit-identical, moments within
-    scale/2, and every chunk's digest equals `checksum_np` of its file."""
-    import numpy as np
+def _check_int8_restore(got, live) -> float:
+    """An int8-moment image's restore `got` against the state `live` it
+    was written from: params and step bit-identical, moments within
+    scale/2.  Returns the worst |error| / scale where the scale is a
+    normal f32."""
     import torch
 
-    from repro_torch.core.runtime import MANARuntime
-    from repro_torch.kernels.checksum.ref import checksum_np
     from repro_torch.kernels.quantize import ref as qref
     from repro_torch.tree import tree_leaves
 
-    d = os.path.join(root, f"int8_{cfg.arch_id}")
-    rt = MANARuntime(cfg, rc, ckpt_dir=d, ckpt_every_steps=2,
-                     quantize_moments=True, device="cuda")
-    rt.initialize()
-    rt.run(2)
-    if rt.ckpt.steps() != [2]:
-        raise AssertionError(f"images at {rt.ckpt.steps()}, want [2]")
-    report["int8_write"] = rt.ckpt.stats[-1]
-    live = rt.state
-    t0 = time.monotonic()
-    got, _ = rt.ckpt.restore(2)
-    torch.cuda.synchronize()
-    report["restore_int8_s"] = time.monotonic() - t0
     if not torch.equal(got["step"], live["step"]):
         raise AssertionError("restored step differs")
     for a, b in zip(tree_leaves(got["params"]), tree_leaves(live["params"])):
@@ -798,6 +797,33 @@ def phase_int8(cfg, rc, root: str, report: dict, label: str = "phase 3"):
             ratio = ((a.reshape(-1) - flat).abs() / per)[normal]
             if ratio.numel():   # a leaf may have only subnormal scales
                 worst = max(worst, float(ratio.max()))
+    return worst
+
+
+def phase_int8(cfg, rc, root: str, report: dict, label: str = "phase 3"):
+    """A runtime with int8 moments writes one image at step 2; restored
+    on the card, params and step are bit-identical, moments within
+    scale/2, and every chunk's digest equals `checksum_np` of its file."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.runtime import MANARuntime
+    from repro_torch.kernels.checksum.ref import checksum_np
+
+    d = os.path.join(root, f"int8_{cfg.arch_id}")
+    rt = MANARuntime(cfg, rc, ckpt_dir=d, ckpt_every_steps=2,
+                     quantize_moments=True, device="cuda")
+    rt.initialize()
+    rt.run(2)
+    if rt.ckpt.steps() != [2]:
+        raise AssertionError(f"images at {rt.ckpt.steps()}, want [2]")
+    report["int8_write"] = rt.ckpt.stats[-1]
+    live = rt.state
+    t0 = time.monotonic()
+    got, _ = rt.ckpt.restore(2)
+    torch.cuda.synchronize()
+    report["restore_int8_s"] = time.monotonic() - t0
+    worst = _check_int8_restore(got, live)
     with open(os.path.join(rt.ckpt.step_dir(2), "manifest.json")) as f:
         man = json.load(f)
     n_files = 0
@@ -819,6 +845,115 @@ def phase_int8(cfg, rc, root: str, report: dict, label: str = "phase 3"):
     shutil.rmtree(d, ignore_errors=True)
     torch.cuda.empty_cache()
 
+
+
+def _gathered(tree):
+    """The tree with every DTensor leaf gathered to its full tensor."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: x.full_tensor() if hasattr(x, "full_tensor")
+                    else x, tree)
+
+
+def phase_train_mesh(cfg, rc, root: str, report: dict):
+    """The main path on a `DeviceMesh`: full-width qwen2-0.5b on a (1 x 1)
+    ("data", "model") mesh over an NCCL world of 1 made in this process
+    (destroyed at the end, so later phases see no process group).  Every
+    state leaf is a DTensor.  4 steps with XOR-delta images at 2 and 4;
+    step 2 restored onto the mesh resumes steps 2-3 bit for bit; the
+    losses of steps 0-3 against phase 2's mesh-free ones; the step-4
+    image restored with no mesh equals the mesh state; the mesh state
+    saved with int8 moments and restored onto the mesh (params and step
+    bit-identical, moments within scale/2)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.core.runtime import MANARuntime
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.tree import tree_leaves
+
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        d = os.path.join(root, "mesh")
+        rt = MANARuntime(cfg, rc, ckpt_dir=d, mesh=mesh, ckpt_every_steps=2,
+                         delta_params=True, device="cuda")
+        rt.initialize()
+        kinds = {type(x).__name__ for x in tree_leaves(rt.state)}
+        if kinds != {"DTensor"}:
+            raise AssertionError(f"mesh state leaves are {kinds}")
+        hist, report["mesh_step_s"] = _timed_run(rt, 4)
+        report["mesh_writes"] = list(rt.ckpt.stats)
+        _check_delta_bases(rt, {2: None, 4: 2}, "train_mesh")
+        losses = [h["loss"] for h in hist]
+        state, specs = rt.state, rt.lower.state_specs
+        live = _gathered(state)
+        rt.close()
+        del rt
+
+        rt = MANARuntime(cfg, rc, ckpt_dir=d, mesh=mesh, delta_params=True,
+                         device="cuda")
+        t0 = time.monotonic()
+        if rt.restore(2) != 2:
+            raise AssertionError("mesh restore did not land at step 2")
+        torch.cuda.synchronize()
+        report["mesh_restore_s"] = time.monotonic() - t0
+        hist2, report["mesh_resumed_step_s"] = _timed_run(rt, 2)
+        resumed = [h["loss"] for h in hist2]
+        if resumed != losses[2:4]:
+            raise AssertionError(f"mesh resume not bit-identical: {resumed} "
+                                 f"!= {losses[2:4]}")
+        rt.close()
+        del rt
+
+        nomesh = report["resume_losses"][:4]
+        report["mesh_vs_nomesh"] = max(abs(a - b) / abs(b)
+                                       for a, b in zip(losses, nomesh))
+        if losses != nomesh:
+            # a one-device mesh runs the same local ops; where it does
+            # not, hold it to the reference's cross-topology bound
+            if report["mesh_vs_nomesh"] > 5e-3:
+                raise AssertionError(f"mesh losses {losses} vs phase 2's "
+                                     f"{nomesh}: beyond rtol 5e-3")
+
+        t0 = time.monotonic()
+        flat, _ = CheckpointManager(d, device="cuda").restore(4)
+        torch.cuda.synchronize()
+        report["mesh_restore_nomesh_s"] = time.monotonic() - t0
+        for a, b in zip(tree_leaves(flat), tree_leaves(live)):
+            if not torch.equal(a, b):
+                raise AssertionError("step-4 image restored without a mesh "
+                                     "differs from the mesh state")
+        del flat
+
+        # int8 moments: the mesh state through a quantizing manager and
+        # back onto the mesh (the quantize and dequantize kernels)
+        d8 = os.path.join(root, "mesh_int8")
+        mgr = CheckpointManager(d8, quantize_keys=("opt/m", "opt/v"),
+                                device="cuda")
+        report["mesh_int8_write"] = mgr.save(4, state)
+        t0 = time.monotonic()
+        got, _ = mgr.restore(4, mesh=mesh, specs=specs)
+        torch.cuda.synchronize()
+        report["mesh_restore_int8_s"] = time.monotonic() - t0
+        report["mesh_int8_worst"] = _check_int8_restore(_gathered(got), live)
+        log(f"train_mesh: (1 x 1) NCCL mesh, every leaf a DTensor; losses "
+            f"{losses}; resumed from step 2 {resumed}, bit for bit; "
+            f"against phase 2 (no mesh) {nomesh}: "
+            f"{'bit-equal' if losses == nomesh else 'NOT bit-equal'}, "
+            f"largest relative difference {report['mesh_vs_nomesh']:.3e}; "
+            f"step-4 image restored without a mesh equal to the mesh state; "
+            f"int8 image restored onto the mesh, params/step bit-identical, "
+            f"moments within scale/2 (worst {report['mesh_int8_worst']:.4f})")
+        del live, got, state
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(d8, ignore_errors=True)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1680,6 +1815,10 @@ def main() -> int:
                    ("checksum", "xor_delta")),
         "int8": (lambda: phase_int8(cfg, rc, root, report),
                  ("checksum", "quantize_int8", "dequantize_int8")),
+        # after phase 2, whose mesh-free losses it is held to
+        "train_mesh": (lambda: phase_train_mesh(cfg, rc, root, report),
+                       ("checksum", "xor_delta", "quantize_int8",
+                        "dequantize_int8")),
         "serve_dense": (lambda: phase_serve(cfg, dense_rc, 8, root,
                                             report["serve_dense"]),
                         ("checksum", "xor_delta")),
@@ -1774,6 +1913,19 @@ def main() -> int:
     log(f"max_memory_allocated resume {peaks['resume']} bytes "
         f"({peaks['resume'] / 2**30:.2f} GiB), int8 {peaks['int8']} bytes "
         f"({peaks['int8'] / 2**30:.2f} GiB) [{card}]")
+    log(f"train_mesh ((1 x 1) NCCL mesh): step_s "
+        f"{[round(x, 4) for x in report['mesh_step_s']]}, resumed "
+        f"{[round(x, 4) for x in report['mesh_resumed_step_s']]}; images "
+        + "; ".join(f"step {w['step']}: {w['bytes']} bytes, snapshot_s "
+                    f"{w['snapshot_s']}, write_s {w['write_s']}"
+                    for w in report["mesh_writes"] + [report["mesh_int8_write"]])
+        + f"; restore_s onto the mesh (step 2) "
+        f"{report['mesh_restore_s']:.4f}, without a mesh (chain 4->2) "
+        f"{report['mesh_restore_nomesh_s']:.4f}, int8 onto the mesh "
+        f"{report['mesh_restore_int8_s']:.4f}; losses against phase 2's, "
+        f"largest relative difference {report['mesh_vs_nomesh']:.3e}; "
+        f"phase {wall['train_mesh']:.2f} s, peak {peaks['train_mesh']} bytes "
+        f"({peaks['train_mesh'] / 2**30:.2f} GiB) [{card}]")
     report_serve("serve_dense", cfg, dense_rc, 8, report["serve_dense"], card)
     report_serve("serve_moe", moe_cfg, moe_rc, 4, report["serve_moe"], card)
     report_serve("serve_hybrid", hybrid_cfg, hybrid_rc, 8,

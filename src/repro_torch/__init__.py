@@ -17,6 +17,13 @@ comments (tests/test_torch_hygiene.py holds them to that), and
 `VERBATIM_FUNCTIONS` the functions and classes copied into otherwise
 rewritten modules.
 
+Mesh training: the dense decoder family trains on a
+`torch.distributed.device_mesh.DeviceMesh` (`MANARuntime(mesh=...)`,
+meshes from `repro_torch.launch.mesh`), its state placed as DTensors by
+the reference's sharding rules and spec trees
+(`repro_torch.sharding.rules`, `repro_torch.training.step`); images
+written from a mesh hold full tensors and restore on any mesh or none.
+
 Entry points run on the card: `device=None` resolves to "cuda" and
 raises when CUDA is absent.  Pass `device="cpu"` explicitly to run on
 the host (the tests do).  A kernel wrapper decides by its input: a CUDA
@@ -93,6 +100,7 @@ VERBATIM_FUNCTIONS = (
     ("data/pipeline.py", "SyntheticDataset"),
     ("core/checkpoint.py", "_flatten"),
     ("core/checkpoint.py", "_rebuild"),
+    ("core/split_state.py", "UpperHalf"),
     ("core/split_state.py", "leaf_shard_dim"),
     ("core/split_state.py", "gather_leaf"),
     ("core/split_state.py", "scatter_leaf"),

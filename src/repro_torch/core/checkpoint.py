@@ -25,7 +25,19 @@ What moves to the card:
 
 `device=None` means "cuda" and raises when CUDA is absent; tests pass
 `device="cpu"`, which takes each kernel's plain PyTorch version.
-Sharded restore onto a mesh is not ported (ROADMAP.md).
+
+On a mesh (state leaves that are DTensors): the snapshot gathers each
+DTensor leaf to its full tensor before anything is encoded or digested,
+as the reference's `_to_host` does, so an image holds no mesh and
+restores on any mesh or on none, in either package.  The gathers are
+collectives: every mesh rank makes them at the safe point, on the main
+thread (never on the writer thread, where they would interleave with
+the next step's collectives).  Mesh rank 0 alone writes the image; every
+rank waits for its commit in `wait()` (a barrier over the mesh), so no
+rank goes on to restore a half-written image.  `restore(mesh=, specs=)`
+has every rank read and verify the image and keep its own slice of each
+leaf (`distribute_tensor(..., src_data_rank=None)`: no broadcast, the
+restored shards are the bits that were written).
 """
 from __future__ import annotations
 
@@ -46,6 +58,7 @@ from repro_torch.core.codec import (DEFAULT_COMPRESS_LEVEL, ChainPolicy,
                                     DeltaCodec, ImageCodec, ImageError,
                                     ImageIntegrityError, QuantizeCodec,
                                     RawCodec, dtype_name, shard_digest)
+from repro_torch.sharding.rules import PartitionSpec, placements
 
 __all__ = ["CheckpointManager", "CheckpointError", "ImageError",
            "ImageIntegrityError", "DeltaChainError", "MANIFEST"]
@@ -170,6 +183,9 @@ class CheckpointManager:
         self._writer = ThreadPoolExecutor(max_workers=1,
                                           thread_name_prefix="ckpt-writer")
         self._pending: Optional[Future] = None
+        # the mesh of the pending save's state (None: no mesh), whose
+        # ranks meet at a barrier once its image is committed
+        self._pending_mesh = None
         self.stats: List[Dict] = []
 
     # ---- public API -----------------------------------------------------------
@@ -180,30 +196,46 @@ class CheckpointManager:
                    extra: Optional[Dict] = None) -> Future:
         """Snapshot now (a copy on the device), write in the background.
 
-        Returns a Future resolving to write stats.  A second save while
-        one is in flight waits for it first (double buffering).
+        Returns a Future resolving to write stats (to None on a mesh rank
+        other than 0, which writes nothing).  A second save while one is
+        in flight waits for it first (double buffering).
         """
         self.wait()
         t0 = time.monotonic()
-        snap = _snapshot(state_tree, self.device)
+        snap, mesh = _snapshot(state_tree, self.device)
         snap_s = time.monotonic() - t0
-        logical_flat = (
-            {k: list(v) if isinstance(v, tuple) else None
-             for k, v in _flatten(logical_tree).items()}
-            if logical_tree is not None else {})
-        fut = self._writer.submit(self._write, step, snap, logical_flat,
-                                  extra or {}, snap_s)
-        self._pending = fut
+        if mesh is not None and any(mesh.get_coordinate()):
+            # this rank took part in the gathers; mesh rank 0 writes
+            fut: Future = Future()
+            fut.set_result(None)
+        else:
+            logical_flat = (
+                {k: list(v) if isinstance(v, tuple) else None
+                 for k, v in _flatten(logical_tree).items()}
+                if logical_tree is not None else {})
+            fut = self._writer.submit(self._write, step, snap, logical_flat,
+                                      extra or {}, snap_s)
+        self._pending, self._pending_mesh = fut, mesh
         return fut
 
     def save(self, step: int, state_tree, logical_tree=None,
              extra: Optional[Dict] = None) -> Dict:
-        return self.save_async(step, state_tree, logical_tree, extra).result()
+        fut = self.save_async(step, state_tree, logical_tree, extra)
+        self.wait()
+        return fut.result()
 
     def wait(self) -> None:
-        if self._pending is not None:
-            self._pending.result()
-            self._pending = None
+        """Wait for the pending write; on a mesh every rank also waits
+        at a barrier until mesh rank 0 has committed (or failed) it."""
+        if self._pending is None:
+            return
+        pending, mesh = self._pending, self._pending_mesh
+        self._pending = self._pending_mesh = None
+        try:
+            pending.result()
+        finally:
+            if mesh is not None:
+                _mesh_barrier(mesh)
 
     def steps(self) -> List[int]:
         out = []
@@ -369,30 +401,59 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int] = None, *, mesh=None, specs=None,
                 skeleton=None) -> Tuple[Any, Dict]:
-        """Load a checkpoint onto `self.device`.  Returns (state_tree,
-        extra).  Restore onto a mesh is not ported (`mesh` must be
-        None)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded restore is not ported to repro_torch (ROADMAP.md)")
+        """Load a checkpoint onto `self.device`.  Elastic: pass a
+        (possibly different) mesh + PartitionSpec tree to bind each leaf
+        to the NEW topology as a DTensor (a leaf missing from `specs` is
+        replicated); with mesh=None the leaves are full tensors.
+
+        Returns (state_tree, extra).
+        """
         step = self.latest_step() if step is None else step
         if step is None:
             raise CheckpointError("no checkpoints found")
         d = self.step_dir(step)
         man = self._manifest(d)
         flat = {p: self._read_array(d, p) for p in man["arrays"]}
+        if mesh is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            spec_flat = _flatten(specs) if specs is not None else {}
+            flat = {p: distribute_tensor(
+                a, mesh, placements(spec_flat.get(p, PartitionSpec()), mesh),
+                src_data_rank=None) for p, a in flat.items()}
         return _rebuild(flat), man["extra"]
 
 
 def _snapshot(tree, device):
-    """Every leaf as a fresh tensor on `device` (host arrays uploaded,
-    device tensors copied)."""
+    """(every leaf as a fresh full tensor on `device`, the mesh of the
+    tree's DTensor leaves or None).  Host arrays are uploaded, device
+    tensors copied, and a DTensor leaf is gathered to its full tensor
+    first (a collective of every rank of its mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = None
+
     def snap(x):
+        nonlocal mesh
+        if isinstance(x, DTensor):
+            mesh = x.device_mesh
+            x = x.full_tensor()
         if isinstance(x, torch.Tensor):
             return x.detach().to(device, copy=True)
         return torch.from_numpy(np.array(x)).to(device)
 
-    return _rebuild({p: snap(x) for p, x in _flatten(tree).items()})
+    return _rebuild({p: snap(x) for p, x in _flatten(tree).items()}), mesh
+
+
+def _mesh_barrier(mesh) -> None:
+    """Every rank of `mesh` reaches this point before any leaves it: a
+    one-element all-reduce over each mesh dim in turn (after dim i, each
+    rank has met every rank that shares its coordinates past i)."""
+    import torch.distributed as dist
+
+    t = torch.zeros(1, device=mesh.device_type)
+    for i in range(mesh.ndim):
+        dist.all_reduce(t, group=mesh.get_group(i))
 
 
 def _host(payload):

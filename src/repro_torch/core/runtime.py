@@ -31,7 +31,21 @@ from repro_torch.core.control import make_control_plane
 from repro_torch.core.split_state import LowerHalf
 from repro_torch.core.two_phase_commit import RankAgent
 from repro_torch.data.pipeline import SyntheticDataset
+from repro_torch.sharding.rules import PartitionSpec as P
+from repro_torch.sharding.rules import batch_axes, placements
 from repro_torch.training.step import abstract_params, init_train_state
+from repro_torch.tree import tree_map
+
+
+def _local(x):
+    """A replicated DTensor's local tensor; any other tensor as it is."""
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def _full(x):
+    """A DTensor's full value (a collective of its mesh); any other
+    tensor as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
 class MANARuntime:
@@ -61,7 +75,11 @@ class MANARuntime:
 
     Keywords are the reference's plus `device` (None: "cuda", raising
     when CUDA is absent), less `use_pallas`: the device selects the
-    kernels.  `mesh` must be None (sharding is not ported).  With
+    kernels.  `mesh` (a `DeviceMesh` on `device`'s type, e.g. from
+    `repro_torch.launch.mesh.make_mesh`; every rank of it runs this
+    runtime in step) places the state's leaves as DTensors by the spec
+    tree and splits each batch over the data axes; the dense decoder
+    family trains on a mesh.  With
     `async_ckpt=True` the agent runs the asynchronous 2PC split on the
     thread writer.  The runtime sets no process-wide switch: a resume
     repeats the uninterrupted run bit for bit on the card without
@@ -129,11 +147,20 @@ class MANARuntime:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed)
         self.state = init_train_state(self.cfg, self.rc, gen, self.device)
+        if self.lower.mesh is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            mesh = self.lower.mesh
+            self.state = tree_map(
+                lambda x, sp: distribute_tensor(x, mesh, placements(sp, mesh)),
+                self.state, self.lower.state_specs)
 
     def restore(self, step: Optional[int] = None) -> int:
-        """Restart: map the upper half back in onto THIS lower half
-        (which may run a different transport than the writer's)."""
-        state, extra = self.ckpt.restore(step)
+        """Elastic restart: map the upper half back in onto THIS lower
+        half (which may have a different mesh shape, or none, or run a
+        different transport than the writer's)."""
+        state, extra = self.ckpt.restore(
+            step, mesh=self.lower.mesh, specs=self.lower.state_specs)
         self.state = state
         meta = extra.get("run_meta", {})
         if meta.get("arch") and meta["arch"] != self.cfg.arch_id:
@@ -165,7 +192,7 @@ class MANARuntime:
 
     # ---- snapshot (phase-2 payload) --------------------------------------------
     def _snapshot(self) -> None:
-        step = int(self.state["step"].item())
+        step = int(_local(self.state["step"]))
         extra = {
             "data": self.dataset.state_dict(step),
             "agent": self.agent.serialize(),
@@ -177,6 +204,18 @@ class MANARuntime:
         self.checkpoints_taken += 1
 
     # ---- the loop -----------------------------------------------------------------
+    def _split_batch(self, batch):
+        """Every rank made the whole batch (a pure function of (seed,
+        step)); each keeps its slice of the leading dim over the mesh's
+        data axes."""
+        from torch.distributed.tensor import distribute_tensor
+
+        mesh = self.lower.mesh
+        lead = batch_axes(mesh)
+        return {k: distribute_tensor(
+            v, mesh, placements(P(lead, *([None] * (v.ndim - 1))), mesh),
+            src_data_rank=None) for k, v in batch.items()}
+
     def _maybe_trigger(self, step: int) -> None:
         if self._preempted:  # SIGUSR1 landed since the last boundary
             self._preempted = False
@@ -194,14 +233,16 @@ class MANARuntime:
             stop_flag: Optional[Callable[[], bool]] = None) -> List[Dict]:
         assert self.state is not None, "initialize() or restore() first"
         for _ in range(num_steps):
-            step = int(self.state["step"].item())
+            step = int(_local(self.state["step"]))
             if stop_flag is not None and stop_flag():
                 break
             batch = self.dataset.get_batch(step)
             batch = {k: torch.from_numpy(v).to(self.device)
                      for k, v in batch.items()}
+            if self.lower.mesh is not None:
+                batch = self._split_batch(batch)
             self.state, metrics = self.lower.train_step(self.state, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics = {k: float(_full(v)) for k, v in metrics.items()}
             metrics["step"] = step
             self.history.append(metrics)
             if on_metrics is not None:

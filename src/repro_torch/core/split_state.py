@@ -1,5 +1,5 @@
 """Split-process state model (paper §II-A), port of
-`repro.core.split_state` for one device.
+`repro.core.split_state`.
 
 Upper half — checkpointed, host-serializable, *never* references
 physical resources: params / optimizer moments / step counter, the
@@ -7,11 +7,15 @@ data-pipeline cursor, and the virtual-object tables, drain buffers and
 per-comm collective counts (`RankAgent.serialize()`).
 
 Lower half — NEVER checkpointed, rebuilt from scratch at restart: the
-train step and the message fabric (a transport WORLD picked by name from
-the registry, so a checkpoint written over one backend restores over
-another).  PyTorch runs eagerly, so there is no compiled executable, and
-the mesh branch (`mesh` not None) is not ported (ROADMAP.md).  The
-transport-era elastic reshard below is the reference's code.
+`DeviceMesh` and its sharding rules, the train step, and the message
+fabric (a transport WORLD picked by name from the registry, so a
+checkpoint written over one backend restores over another).  PyTorch
+runs eagerly, so there is no compiled executable: on a mesh the train
+step is wrapped to place its output state by the spec tree, as the
+reference's jit places it by its `out_shardings`.  The mesh branch
+holds the dense decoder family (ROADMAP.md §A); the other families
+raise there.  The transport-era elastic reshard below is the
+reference's code.
 """
 from __future__ import annotations
 
@@ -23,6 +27,15 @@ import numpy as np
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.codec import ImageIntegrityError
 from repro_torch.sharding.rules import WORLD_LOGICAL_AXES, zero1_pick_dim
+
+
+@dataclasses.dataclass
+class UpperHalf:
+    state: Any                      # {"params", "opt", "step"}
+    logical: Any                    # mirrored logical-axes tree
+    data_state: Dict                # {"seed", "step"}
+    agent_blob: Optional[Dict]      # virtual tables etc.
+    run_meta: Dict                  # arch id, shape name — for validation
 
 
 @dataclasses.dataclass
@@ -41,17 +54,61 @@ class LowerHalf:
               transport: str = "inproc", n_ranks: int = 1,
               fault_plan=None) -> "LowerHalf":
         from repro_torch.comm.transport import create_world
-        from repro_torch.training.step import make_train_step
+        from repro_torch.sharding.rules import ShardingRules
+        from repro_torch.training.step import (make_train_step,
+                                               train_state_specs)
 
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded lower halves are not ported to repro_torch "
-                "(ROADMAP.md)")
+            family = _family_off_mesh(cfg)
+            if family is not None:
+                raise NotImplementedError(
+                    f"{cfg.arch_id}: the {family} family does not train on "
+                    f"a mesh yet (ROADMAP.md §A, 'the other families on a "
+                    f"mesh'); only the dense decoder family does")
         # fault_plan: deterministic chaos injection on the rebuilt
         # lower half's fabric — physical state, never checkpointed
         comm = create_world(transport, n_ranks, fault_plan=fault_plan)
-        return cls(None, None, make_train_step(cfg, rc, None), None, comm,
-                   transport)
+        if mesh is None:
+            return cls(None, None, make_train_step(cfg, rc, None), None,
+                       comm, transport)
+        rules = ShardingRules(mesh, moe_mode=rc.moe_mode,
+                              seq_shard=rc.seq_shard,
+                              kv_time_shard=rc.kv_time_shard)
+        specs = train_state_specs(cfg, rc, rules)
+        step = _placed_step(make_train_step(cfg, rc, rules), mesh, specs)
+        return cls(mesh, rules, step, specs, comm, transport)
+
+
+def _family_off_mesh(cfg: ModelConfig) -> Optional[str]:
+    """The model family of `cfg` if it has no mesh path yet, else None
+    (the dense decoder, the one family held on a mesh)."""
+    for family, has in (("MoE", cfg.moe is not None),
+                        ("hybrid-SSM", bool(cfg.ssm_state)),
+                        ("RWKV-6", cfg.rwkv),
+                        ("encoder-decoder", cfg.enc_dec),
+                        ("vision cross-attention", bool(cfg.cross_attn_every))):
+        if has:
+            return family
+    return None
+
+
+def _placed_step(train_step, mesh, specs):
+    """`train_step` whose new state's DTensor leaves are placed by their
+    specs (the update may leave a param with its moments' ZeRO-1
+    placement)."""
+    from repro_torch.sharding.rules import placements
+    from repro_torch.tree import tree_map
+
+    def place(x, spec):
+        want = placements(spec, mesh)
+        return x if tuple(x.placements) == want else x.redistribute(mesh,
+                                                                    want)
+
+    def step(state, batch):
+        new_state, metrics = train_step(state, batch)
+        return tree_map(place, new_state, specs), metrics
+
+    return step
 
 
 # ---------------------------------------------------------------------------

@@ -55,3 +55,26 @@ class SyntheticDataset:
     @classmethod
     def from_state(cls, cfg, shape, state: Dict) -> "SyntheticDataset":
         return cls(cfg, shape, seed=state["seed"])
+
+
+def make_batch_specs(cfg: ModelConfig, shape: ShapeConfig, dtype):
+    """Meta-tensor stand-ins (shape and dtype, no storage) for every
+    model input (dry-run spec); `dtype` is the torch dtype of the
+    modality stubs."""
+    import torch
+
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"tokens": meta((B, 1), torch.int32)}
+    specs = {"tokens": meta((B, S), torch.int32),
+             "labels": meta((B, S), torch.int32)}
+    if cfg.enc_dec:
+        specs["frames"] = meta((B, cfg.enc_positions, cfg.d_model), dtype)
+    if cfg.cross_attn_every:
+        specs["patches"] = meta((B, cfg.vision_tokens, cfg.d_model), dtype)
+    if shape.kind == "prefill":
+        specs.pop("labels")
+    return specs

@@ -96,7 +96,27 @@ def out_proj(p, o):
 def _group(q, n_kv: int):
     """(B,S,H,hd) -> (B,S,K,G,hd) grouped query heads."""
     B, S, H, hd = q.shape
+    if hasattr(q, "device_mesh"):
+        q = _whole_groups(q, n_kv)
     return q.reshape(B, S, n_kv, H // n_kv, hd)
+
+
+def _whole_groups(q, n_kv: int):
+    """A DTensor q (B,S,H,hd) whose heads are split over more mesh ranks
+    than the K groups can follow (K not divisible by their count): those
+    mesh dims are replicated, so the reshape to (B,S,K,G,hd) splits only
+    whole groups (e.g. H 4 over a "model" axis of 4 with K 2)."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = q.device_mesh
+    split = [i for i, p in enumerate(q.placements) if p.is_shard(2)]
+    n = 1
+    for i in split:
+        n *= mesh.size(i)
+    if n_kv % n == 0:
+        return q
+    return q.redistribute(mesh, [Replicate() if i in split else p
+                                 for i, p in enumerate(q.placements)])
 
 
 def _scale(q):
@@ -126,7 +146,28 @@ def _block(qh, start: int, c: int, kh, vh, keep):
     q = qh[:, :, start:start + c].reshape(B, K, c * G, hd)
     if keep is not None:
         keep = keep[:, None, :].expand(c, G, keep.shape[1]).reshape(c * G, -1)
-    return _Attend.apply(q, kh, vh, keep).reshape(B, K, c, G, hd)
+    return _attend(q, kh, vh, keep).reshape(B, K, c, G, hd)
+
+
+def _attend(q, k, v, keep):
+    """`_Attend` of one block.  On a mesh (DTensor inputs) it runs on
+    each rank's own (B, K) block: a block's attention is independent
+    across batch rows and KV heads, so q, k and v are placed alike,
+    split at most on those two dims, and the local tensors go through
+    the same ops as without a mesh (DTensor would otherwise plan a
+    sharding for each op of each block shape, ~25 s of the first step on
+    a (2 x 2) CPU mesh)."""
+    if not hasattr(q, "device_mesh"):
+        return _Attend.apply(q, k, v, keep)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = q.device_mesh
+    pl = tuple(p if type(p) is Shard and p.dim in (0, 1) else Replicate()
+               for p in q.placements)
+    q, k, v = (x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
+               for x in (q, k, v))
+    out = _Attend.apply(q.to_local(), k.to_local(), v.to_local(), keep)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
 
 
 def _heads_last(blocks):

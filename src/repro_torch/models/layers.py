@@ -132,6 +132,8 @@ def sum_rows_by_id(rows, ids, n: int):
     goes to distinct rows, so no two adds race, and the result is the
     same bits on every run and every device (an `index_add_` on CUDA
     adds repeated ids with atomics, in no fixed order)."""
+    if ids.numel() == 0:
+        return rows.new_zeros((n, rows.shape[1]), dtype=torch.float32)
     order = torch.argsort(ids, stable=True)
     ids = ids[order]
     acc = rows[order].to(torch.float32)
@@ -171,11 +173,96 @@ class _EmbedGather(torch.autograd.Function):
         return sum_rows_by_id(grad, ids, ctx.n_rows), None, None
 
 
+def _vocab_range(n_rows: int, mesh, dims):
+    """(first row, rows) of this rank's block of a table of `n_rows`
+    rows split evenly on dim 0 over the mesh dims `dims`, in mesh
+    order."""
+    lo, size = 0, n_rows
+    for i in dims:
+        size //= mesh.size(i)
+        lo += mesh.get_local_rank(i) * size
+    return lo, size
+
+
+class _MeshEmbedGather(torch.autograd.Function):
+    """The embedding gather on a mesh, run on local shards: no sharding
+    rule of DTensor covers the fixed-order backward (`sum_rows_by_id`
+    sorts and selects with `nonzero`).
+
+    table: DTensor (V, d), split on dim 0 over the mesh dims `vdims`
+    (the vocabulary over "model") and replicated over the others; tokens:
+    DTensor (B, S).  Forward: each rank looks up its local ids that fall
+    in its block of rows and zeroes the rest, so the rows are `Partial`
+    (summed) over `vdims` and keep the tokens' placements elsewhere.
+    Backward: the ids and the gradient rows are gathered whole (over the
+    data axes), and each rank sums, with `sum_rows_by_id`, the rows of
+    the ids in its block in the global order of the tokens: every id's
+    sum is the one the mesh-free backward makes, bit for bit, on any
+    mesh, and the table gradient has the table's placements."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, dtype, vdims):
+        from torch.distributed.tensor import DTensor, Partial
+
+        mesh = table.device_mesh
+        lo, size = _vocab_range(table.shape[0], mesh, vdims)
+        ids = tokens.to_local().reshape(-1).to(torch.int64)
+        keep = (ids >= lo) & (ids < lo + size)
+        rows = torch.index_select(table.to_local(), 0,
+                                  torch.where(keep, ids - lo, 0))
+        rows = torch.where(keep[:, None], rows, 0).to(dtype)
+        ctx.save_for_backward(tokens)
+        ctx.table_spec = (mesh, table.placements, table.shape, vdims)
+        out = [Partial() if i in vdims else pl
+               for i, pl in enumerate(tokens.placements)]
+        local = rows.reshape(*tokens.to_local().shape, table.shape[-1])
+        return DTensor.from_local(local, mesh, out, run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+
+        (tokens,) = ctx.saved_tensors
+        mesh, table_pl, table_shape, vdims = ctx.table_spec
+        ids = tokens.full_tensor().reshape(-1).to(torch.int64)
+        g = grad.full_tensor().reshape(ids.numel(), -1)
+        lo, size = _vocab_range(table_shape[0], mesh, vdims)
+        keep = (ids >= lo) & (ids < lo + size)
+        local = sum_rows_by_id(g[keep], ids[keep] - lo, size)
+        return (DTensor.from_local(local, mesh, table_pl, run_check=False),
+                None, None, None)
+
+
+def _mesh_embed(table, tokens, dtype):
+    """`_MeshEmbedGather` of a DTensor table: the table is first
+    redistributed (with autograd) so that it is split on dim 0 only over
+    the mesh dims that do not split the tokens, and replicated over the
+    rest (an FSDP table is gathered over the data axes here)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    vdims = tuple(i for i, (tp, pl) in enumerate(zip(tokens.placements,
+                                                     table.placements))
+                  if pl.is_shard(0) and not tp.is_shard())
+    want = tuple(table.placements[i] if i in vdims else Replicate()
+                 for i in range(mesh.ndim))
+    if tuple(table.placements) != want:
+        table = table.redistribute(mesh, want)
+    return _MeshEmbedGather.apply(table, tokens, dtype, vdims)
+
+
 def embed_apply(p, tokens, dtype):
     """Row gather of the embedding table in `dtype` (the f32 rows are
     cast after the gather, which is the same as gathering from the cast
-    table).  Its backward is deterministic on CUDA (`_EmbedGather`)."""
+    table).  Its backward is deterministic on CUDA (`_EmbedGather`; on a
+    mesh `_MeshEmbedGather`, bit-equal to it)."""
     table = p["embedding"]
+    if hasattr(table, "device_mesh"):
+        return _mesh_embed(table, tokens, dtype)
     ids = tokens.reshape(-1).to(torch.int64)
     rows = _EmbedGather.apply(table, ids, dtype)
     return rows.reshape(*tokens.shape, table.shape[-1])
@@ -224,9 +311,12 @@ def chunked_softmax_xent(h, head, labels, mask, chunk: int,
         logits = torch.einsum("bcd,dv->bcv", hx, w).to(torch.float32)
         if vmask is not None:
             logits = logits + vmask
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, lx.to(torch.int64)[..., None])[..., 0]
-        loss = (lse - tgt) * mx
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        # (B, c, 1) until the difference: on a vocab-sharded mesh the
+        # gathered value is a masked partial sum, which DTensor reduces
+        # only at the gather's own shape
+        tgt = torch.gather(logits, -1, lx.to(torch.int64)[..., None])
+        loss = (lse - tgt)[..., 0] * mx
         tot = tot + loss.sum()
         cnt = cnt + mx.sum()
     return tot, cnt

@@ -9,8 +9,10 @@ a token routed to real expert e goes to all of e's virtual experts with
 the same gate weight.  Parameter names, shapes and logical axes are the
 reference's, so images move between the packages.
 
-The reference's sharding constraints (`rules`) are left out: with one
-device they do nothing.  Capacity positions are an integer cumsum, so
+The reference's four sharding constraints on the dispatch
+(`src/repro/models/moe.py:103-121`, `ep` and `tp` modes) are not ported
+yet: MoE models do not train on a mesh (`LowerHalf.build` raises, and
+ROADMAP.md §A queues them), and without a mesh they do nothing.  Capacity positions are an integer cumsum, so
 token drops are exact and deterministic (a float cumsum has no
 deterministic CUDA implementation), and the dispatch one-hot is built
 by comparison with `arange(cap)`, which gives a zero row for a position

@@ -45,6 +45,13 @@ saves only its inputs, the reference's "full" policy: a decoder block's
 inputs are its stream and the encoder's output (or the image patches),
 so the gradient of all its cross attentions reaches the encoder.  The
 port has no per-name save policies, so "dots" and "comm" act as "full".
+
+On a mesh (`rules` set, leaves DTensors) each block's input is placed by
+its logical axes ("batch", "seq", None) with `_constrain`, the
+reference's `with_sharding_constraint` sites, as a `redistribute`: values
+do not change, only placement.  The embedding runs on local shards
+(`layers._MeshEmbedGather`); every other op propagates its DTensor
+sharding.
 """
 from __future__ import annotations
 
@@ -258,6 +265,18 @@ def _layer_params(blocks, i: int):
     return blocks[i]
 
 
+def _constrain(x, rules, logical):
+    """`x` placed on the mesh by its logical axes, the reference's
+    `with_sharding_constraint`: a DTensor is redistributed (its values
+    do not change), anything else is returned as it is."""
+    if rules is None or not hasattr(x, "device_mesh"):
+        return x
+    want = rules.named(logical, x.shape).placements
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(rules.mesh, want)
+
+
 def _remat(rc, fn, *args):
     """fn(*args), under the per-block checkpoint where autograd records
     and `rc.remat_policy` asks for remat; every tensor the block reads
@@ -279,6 +298,7 @@ def _encode(params, cfg, rc, rules, frames):
     blocks = _unbind_layers(params["enc_blocks"])
 
     def block(x, p):
+        x = _constrain(x, rules, ("batch", "seq", None))
         return _mixer_block_seq(cfg, rc, rules, p, x, positions, None,
                                 causal=False)[0]
 
@@ -303,6 +323,7 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
     B, S = tokens.shape
     dtype = getattr(torch, rc.dtype)
     x = L.embed_apply(params["embed"], tokens, dtype)
+    x = _constrain(x, rules, ("batch", "seq", None))
     positions = torch.arange(S, device=tokens.device)
     enc_out = None
     if cfg.enc_dec:
@@ -313,6 +334,7 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(x, p, enc_out):
+        x = _constrain(x, rules, ("batch", "seq", None))
         if cfg.rwkv:
             x, aux, cache = _rwkv_block_seq(cfg, rc, p, x)
         else:

@@ -1,12 +1,15 @@
-"""train_step and serve_step factories plus state assembly (port of
-`repro.training.step` for dense and MoE decoders).
+"""train_step and serve_step factories plus state shape/sharding
+assembly (port of `repro.training.step`).
 
 The returned step functions are transitions over plain trees of
 tensors ((state, batch) -> (state, metrics) for training, (params,
 decode state, token) -> (logits, decode state) for serving), so the
 MANA runtime interposes at step boundaries (the hybrid-2PC safe point)
 and a decode state is upper-half state an image can hold as it is.
-PyTorch runs eagerly: there is no jit, and no mesh.
+PyTorch runs eagerly: there is no jit.  On a mesh (`rules` set) the
+state's leaves are DTensors placed by `train_state_specs`, and the
+train step runs with plain tensors made inside the model taken as
+replicated.
 """
 from __future__ import annotations
 
@@ -14,10 +17,12 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.sharding.rules import PartitionSpec as P
+from repro_torch.sharding.rules import ShardingRules, zero1_shard
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def init_train_state(cfg: ModelConfig, rc: RunConfig, generator,
@@ -31,6 +36,63 @@ def init_train_state(cfg: ModelConfig, rc: RunConfig, generator,
 def abstract_params(cfg: ModelConfig) -> Tuple[Any, Any]:
     """(meta-tensor tree, logical-axes tree) — no allocation."""
     return T.init_params(cfg, None, "meta")
+
+
+def abstract_train_state(cfg: ModelConfig, rc: RunConfig) -> Dict:
+    """The train state's tree on the meta device: shapes and dtypes, no
+    allocation."""
+    return init_train_state(cfg, rc, None, "meta")
+
+
+def train_state_specs(cfg: ModelConfig, rc: RunConfig, rules: ShardingRules):
+    """PartitionSpecs for the full train state (ZeRO-1 moments included)."""
+    shapes, logical = abstract_params(cfg)
+    p_specs = tree_map(lambda s, lg: rules.spec(lg, s.shape), shapes,
+                       logical)
+    if rc.fsdp:
+        # ZeRO-3: params (and hence grads) also sharded over the data
+        # axis; each use gathers them and the grads come back reduced
+        # onto the shards
+        p_specs = tree_map(lambda s, sp: zero1_shard(sp, s.shape, rules.mesh),
+                           shapes, p_specs)
+    if rc.zero1:
+        mv_specs = tree_map(lambda s, sp: zero1_shard(sp, s.shape,
+                                                      rules.mesh),
+                            shapes, p_specs)
+    else:
+        mv_specs = p_specs
+    return {"params": p_specs,
+            "opt": {"m": mv_specs, "v": mv_specs, "count": P()},
+            "step": P()}
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig, rules: ShardingRules):
+    """Shape-aware: batch dims that do not divide the DP axes (e.g. the
+    long_500k single sequence) are replicated."""
+    B = shape.global_batch
+    if shape.kind == "decode":
+        return {"tokens": rules.spec(("batch", None), (B, 1))}
+    S = shape.seq_len
+    specs = {"tokens": rules.spec(("batch", None), (B, S)),
+             "labels": rules.spec(("batch", None), (B, S))}
+    if cfg.enc_dec:
+        specs["frames"] = rules.spec(("batch", None, None),
+                                     (B, cfg.enc_positions, cfg.d_model))
+    if cfg.cross_attn_every:
+        specs["patches"] = rules.spec(("batch", None, None),
+                                      (B, cfg.vision_tokens, cfg.d_model))
+    if shape.kind == "prefill":
+        specs.pop("labels")
+    return specs
+
+
+def decode_state_specs(cfg: ModelConfig, rc: RunConfig, rules: ShardingRules,
+                       shape: ShapeConfig):
+    """PartitionSpecs of the decode state (`T.init_decode_state` on the
+    meta device) by its logical axes."""
+    lg = T.decode_state_logical(cfg)
+    shapes = T.init_decode_state(cfg, shape, rc, "meta")
+    return tree_map(lambda s, l: rules.spec(l, s.shape), shapes, lg)
 
 
 def make_train_step(cfg: ModelConfig, rc: RunConfig, rules=None):
@@ -55,7 +117,18 @@ def make_train_step(cfg: ModelConfig, rc: RunConfig, rules=None):
         return ({"params": new_params, "opt": new_opt, "step": step + 1},
                 out_metrics)
 
-    return train_step
+    if rules is None:
+        return train_step
+
+    def mesh_train_step(state, batch):
+        # the model and the optimizer make plain tensors (positions,
+        # masks, accumulators): on a mesh they are replicated
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            return train_step(state, batch)
+
+    return mesh_train_step
 
 
 def make_serve_steps(cfg: ModelConfig, rc: RunConfig, rules=None):
