@@ -41,27 +41,42 @@ each fatal on failure:
      (dequantize kernel); params and step bit-identical, moments within
      scale/2, every chunk's manifest digest equal to the numpy
      `checksum_np` of its file;
-  train_mesh: the main path on a `DeviceMesh`: full-width qwen2-0.5b
+  train_mesh, train_mesh_moe, train_mesh_hybrid, train_mesh_rwkv (run
+     last, after the train phases): the main path on a `DeviceMesh`
      through `MANARuntime(mesh=...)` on a (1 x 1) ("data", "model") mesh
-     over an NCCL world of 1 made in this process (`HashStore`; destroyed
-     at the phase's end), every state leaf a DTensor: 4 steps with
-     XOR-delta images at 2 and 4; step 2 restored onto the mesh must
-     repeat steps 2-3 bit for bit; steps 0-3 are compared with phase 2's
-     mesh-free losses (the largest relative difference is printed; held
-     to the reference's cross-topology rtol 5e-3 if they are not
-     bit-equal); the step-4 image restored without a mesh must equal the
-     mesh state bit for bit; the mesh state saved with int8 moments and
-     restored onto the mesh (params and step bit-identical, moments
-     within scale/2);
+     over an NCCL world of 1 made in this process (`HashStore`; made by
+     the first mesh phase, shared by the others and destroyed after the
+     last), every state leaf a DTensor (`phase_train_mesh_family`): the
+     run's images are restored without a mesh (the last, equal to the
+     mesh state) and onto the mesh (the first, whose resumed steps must
+     repeat the run bit for bit); the losses (and MoE's `moe_aux`) are
+     held to the same config's mesh-free steps from the same seed
+     (bit-equal, or else the reference's cross-topology rtol 5e-3 with
+     the largest relative difference printed); with an int8 image, the
+     resumed state is written with int8 moments and XOR-delta params on
+     the first image and restored onto the mesh (params and step
+     bit-identical, moments within scale/2).  train_mesh: full-width
+     qwen2-0.5b, 4 steps with XOR-delta images at 2 and 4 (the step-4
+     chain restored without a mesh), held to phase 2's losses, with the
+     int8 image.  train_mesh_moe: train_moe's config (Mixtral-8x7B at
+     full width, 1 layer, B 1 x S 8192, 16 dispatch groups of 512
+     tokens, `moe_mode="ep"`), 4 steps with one full image at step 2,
+     held to train_moe's steps 0-3.  train_mesh_hybrid and
+     train_mesh_rwkv: hymba-1.5b and rwkv6-3b at full width cut to 2
+     layers (`MESH_LAYERS`), B 4 x S 4096: 3 steps without a mesh, then
+     3 on the mesh from the same seed with an image at step 2, and the
+     int8 image;
   4. report: step times, image bytes, write/restore seconds, peak device
      memory, and one JSON line of the kernels with their launches on the
      main path.  The counts are set to 0 just before each main-path
-     phase (2, 3, train_mesh, the serve phases, the world phases, cli,
-     quickstart, preempt and the train phases) and read just after it, adding the
+     phase (2, 3, the serve phases, the world phases, cli, quickstart,
+     preempt, the train phases and the mesh phases) and read just after
+     it, adding the
      counts that a world phase's spawned socket ranks report from their
      own processes; each phase must launch the kernels of its path (2,
-     cli: checksum, XOR; 3: checksum, quantize, dequantize; train_mesh:
-     all four; serving:
+     cli: checksum, XOR; 3: checksum, quantize, dequantize; train_mesh,
+     train_mesh_hybrid, train_mesh_rwkv: all four; train_mesh_moe:
+     checksum; serving:
      checksum, XOR; world_pipeline and world_cross: XOR; quickstart,
      preempt: checksum; train_moe, train_hybrid, train_rwkv,
      train_whisper, train_vision: all four), and `launches` is their
@@ -855,105 +870,187 @@ def _gathered(tree):
                     else x, tree)
 
 
-def phase_train_mesh(cfg, rc, root: str, report: dict):
-    """The main path on a `DeviceMesh`: full-width qwen2-0.5b on a (1 x 1)
-    ("data", "model") mesh over an NCCL world of 1 made in this process
-    (destroyed at the end, so later phases see no process group).  Every
-    state leaf is a DTensor.  4 steps with XOR-delta images at 2 and 4;
-    step 2 restored onto the mesh resumes steps 2-3 bit for bit; the
-    losses of steps 0-3 against phase 2's mesh-free ones; the step-4
-    image restored with no mesh equals the mesh state; the mesh state
-    saved with int8 moments and restored onto the mesh (params and step
-    bit-identical, moments within scale/2)."""
+_MESH: list = []
+
+
+def nccl_mesh():
+    """The (1 x 1) ("data", "model") mesh of the mesh phases, over an NCCL
+    world of 1 made in this process (`HashStore`) at the first call and
+    shared by every later one; `main` destroys the group after the last
+    mesh phase."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core.checkpoint import CheckpointManager
-    from repro_torch.core.runtime import MANARuntime
     from repro_torch.launch.mesh import make_mesh
+
+    if not _MESH:
+        dist.init_process_group(
+            "nccl", store=dist.HashStore(), rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        _MESH.append(make_mesh((1, 1), ("data", "model")))
+    return _MESH[0]
+
+
+def _equal_to_mesh_state(flat, state, what: str) -> None:
+    """`flat` (full tensors) equal to the mesh `state`'s gathered leaves,
+    gathered one leaf at a time (a gathered copy of the whole state would
+    not fit beside Mixtral's)."""
+    import torch
+
     from repro_torch.tree import tree_leaves
 
-    dist.init_process_group(
-        "nccl", store=dist.HashStore(), rank=0, world_size=1,
-        device_id=torch.device("cuda", torch.cuda.current_device()))
-    try:
-        mesh = make_mesh((1, 1), ("data", "model"))
-        d = os.path.join(root, "mesh")
-        rt = MANARuntime(cfg, rc, ckpt_dir=d, mesh=mesh, ckpt_every_steps=2,
-                         delta_params=True, device="cuda")
-        rt.initialize()
-        kinds = {type(x).__name__ for x in tree_leaves(rt.state)}
-        if kinds != {"DTensor"}:
-            raise AssertionError(f"mesh state leaves are {kinds}")
-        hist, report["mesh_step_s"] = _timed_run(rt, 4)
-        report["mesh_writes"] = list(rt.ckpt.stats)
-        _check_delta_bases(rt, {2: None, 4: 2}, "train_mesh")
-        losses = [h["loss"] for h in hist]
-        state, specs = rt.state, rt.lower.state_specs
-        live = _gathered(state)
-        rt.close()
-        del rt
+    for a, b in zip(tree_leaves(flat), tree_leaves(state)):
+        if not torch.equal(a, b.full_tensor()):
+            raise AssertionError(f"{what} differs from the mesh state")
 
-        rt = MANARuntime(cfg, rc, ckpt_dir=d, mesh=mesh, delta_params=True,
+
+def phase_train_mesh_family(cfg, rc, root: str, report: dict, label: str,
+                            steps: int, images, want=None,
+                            int8: bool = False):
+    """A family on the (1 x 1) mesh of `nccl_mesh`, every state leaf a
+    DTensor: `steps` steps with an image at each step of `images` (a
+    full one, then XOR-delta params on the one before); the last image,
+    restored without a mesh right after it is written, must equal the
+    mesh state; then a runtime on the mesh restores the first image and
+    must repeat the steps after it (loss, and `moe_aux` for MoE) bit for
+    bit.  The losses are held to `want`, the same config's mesh-free
+    steps from the same seed (bit-equal, or else within the reference's
+    cross-topology rtol 5e-3, the largest relative difference printed);
+    with `want` None a mesh-free runtime runs the same steps first.
+    With `int8` the resumed state is then written at `steps` with int8
+    moments and XOR-delta params on the first image (the later images,
+    checked, are dropped first), and restored onto the mesh: params and
+    step bit-identical, moments within scale/2 (quantize, XOR and
+    dequantize on the gathered leaves)."""
+    import math
+
+    import torch
+
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.core.runtime import MANARuntime
+    from repro_torch.tree import tree_leaves
+
+    every = images[0]
+    assert list(images) == list(range(every, images[-1] + 1, every))
+    keys = ("loss", "moe_aux") if cfg.moe is not None else ("loss",)
+    d = os.path.join(root, label)
+    os.makedirs(d)
+    _need_disk(d, (len(images) + int8) * 12 * _stored_params(cfg)
+               + (1 << 30), f"{len(images) + int8} full-size images", label)
+    if want is None:
+        rt = MANARuntime(cfg, rc, ckpt_dir=os.path.join(d, "free"),
                          device="cuda")
-        t0 = time.monotonic()
-        if rt.restore(2) != 2:
-            raise AssertionError("mesh restore did not land at step 2")
-        torch.cuda.synchronize()
-        report["mesh_restore_s"] = time.monotonic() - t0
-        hist2, report["mesh_resumed_step_s"] = _timed_run(rt, 2)
-        resumed = [h["loss"] for h in hist2]
-        if resumed != losses[2:4]:
-            raise AssertionError(f"mesh resume not bit-identical: {resumed} "
-                                 f"!= {losses[2:4]}")
+        rt.initialize()
+        hist, report["nomesh_step_s"] = _timed_run(rt, steps)
+        want = [tuple(h[k] for k in keys) for h in hist]
         rt.close()
         del rt
-
-        nomesh = report["resume_losses"][:4]
-        report["mesh_vs_nomesh"] = max(abs(a - b) / abs(b)
-                                       for a, b in zip(losses, nomesh))
-        if losses != nomesh:
-            # a one-device mesh runs the same local ops; where it does
-            # not, hold it to the reference's cross-topology bound
-            if report["mesh_vs_nomesh"] > 5e-3:
-                raise AssertionError(f"mesh losses {losses} vs phase 2's "
-                                     f"{nomesh}: beyond rtol 5e-3")
-
-        t0 = time.monotonic()
-        flat, _ = CheckpointManager(d, device="cuda").restore(4)
-        torch.cuda.synchronize()
-        report["mesh_restore_nomesh_s"] = time.monotonic() - t0
-        for a, b in zip(tree_leaves(flat), tree_leaves(live)):
-            if not torch.equal(a, b):
-                raise AssertionError("step-4 image restored without a mesh "
-                                     "differs from the mesh state")
-        del flat
-
-        # int8 moments: the mesh state through a quantizing manager and
-        # back onto the mesh (the quantize and dequantize kernels)
-        d8 = os.path.join(root, "mesh_int8")
-        mgr = CheckpointManager(d8, quantize_keys=("opt/m", "opt/v"),
-                                device="cuda")
-        report["mesh_int8_write"] = mgr.save(4, state)
-        t0 = time.monotonic()
-        got, _ = mgr.restore(4, mesh=mesh, specs=specs)
-        torch.cuda.synchronize()
-        report["mesh_restore_int8_s"] = time.monotonic() - t0
-        report["mesh_int8_worst"] = _check_int8_restore(_gathered(got), live)
-        log(f"train_mesh: (1 x 1) NCCL mesh, every leaf a DTensor; losses "
-            f"{losses}; resumed from step 2 {resumed}, bit for bit; "
-            f"against phase 2 (no mesh) {nomesh}: "
-            f"{'bit-equal' if losses == nomesh else 'NOT bit-equal'}, "
-            f"largest relative difference {report['mesh_vs_nomesh']:.3e}; "
-            f"step-4 image restored without a mesh equal to the mesh state; "
-            f"int8 image restored onto the mesh, params/step bit-identical, "
-            f"moments within scale/2 (worst {report['mesh_int8_worst']:.4f})")
-        del live, got, state
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.rmtree(d8, ignore_errors=True)
-    finally:
-        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    mesh = nccl_mesh()
+    rt = MANARuntime(cfg, rc, ckpt_dir=d, mesh=mesh, ckpt_every_steps=every,
+                     delta_params=True, device="cuda")
+    rt.initialize()
+    kinds = {type(x).__name__ for x in tree_leaves(rt.state)}
+    if kinds != {"DTensor"}:
+        raise AssertionError(f"{label}: mesh state leaves are {kinds}")
+    _, report["step_s"] = _timed_run(rt, images[-1])
+    rt.ckpt_every_steps = None
+    # the last image, restored without a mesh, against the state it was
+    # written from (the run is at that step)
+    t0 = time.monotonic()
+    flat, _ = CheckpointManager(d, device="cuda").restore(images[-1])
+    torch.cuda.synchronize()
+    report["restore_nomesh_s"] = time.monotonic() - t0
+    _equal_to_mesh_state(flat, rt.state, f"{label}: the step-{images[-1]} "
+                         f"image restored without a mesh")
+    del flat
+    hist, more_s = _timed_run(rt, steps - images[-1])
+    report["step_s"] += more_s
+    report["writes"] = list(rt.ckpt.stats)
+    _check_delta_bases(rt, dict(zip(images, [None] + list(images[:-1]))),
+                       label)
+    got = [tuple(h[k] for k in keys) for h in hist]
+    if not all(math.isfinite(v) for t in got for v in t):
+        raise AssertionError(f"{label}: losses not finite: {got}")
+    report["vs_nomesh"] = max(abs(a - b) / abs(b) for g, w in zip(got, want)
+                              for a, b in zip(g, w))
+    if got != want and report["vs_nomesh"] > 5e-3:
+        raise AssertionError(f"{label}: mesh {keys} {got} vs the mesh-free "
+                             f"{want}: beyond rtol 5e-3")
+    rt.close()
+    del rt
     torch.cuda.empty_cache()
+
+    rt = MANARuntime(cfg, rc, ckpt_dir=d, mesh=mesh, delta_params=True,
+                     device="cuda")
+    t0 = time.monotonic()
+    if rt.restore(every) != every:
+        raise AssertionError(f"{label}: mesh restore missed step {every}")
+    torch.cuda.synchronize()
+    report["restore_s"] = time.monotonic() - t0
+    hist2, report["resumed_step_s"] = _timed_run(rt, steps - every)
+    resumed = [tuple(h[k] for k in keys) for h in hist2]
+    if resumed != got[every:]:
+        raise AssertionError(f"{label}: mesh resume not bit-identical: "
+                             f"{resumed} != {got[every:]}")
+    line = (f"{label}: (1 x 1) NCCL mesh, every leaf a DTensor; {keys} "
+            f"{got}; against the mesh-free run "
+            f"{'bit-equal' if got == want else 'NOT bit-equal'}, largest "
+            f"relative difference {report['vs_nomesh']:.3e}; the "
+            f"step-{images[-1]} image restored without a mesh equal to the "
+            f"mesh state; resumed from step {every} {resumed}, bit for "
+            f"bit")
+    if int8:
+        for s in images[1:]:
+            shutil.rmtree(rt.ckpt.step_dir(s))
+        state, specs = rt.state, rt.lower.state_specs
+        mgr = CheckpointManager(d, quantize_keys=("opt/m", "opt/v"),
+                                delta_keys=("params",), device="cuda")
+        report["int8_write"] = mgr.save(steps, state)
+        _check_delta_bases(rt, {every: None, steps: every}, label)
+        t0 = time.monotonic()
+        back, _ = mgr.restore(steps, mesh=mesh, specs=specs)
+        torch.cuda.synchronize()
+        report["restore_int8_s"] = time.monotonic() - t0
+        report["int8_worst"] = _check_int8_restore(_gathered(back),
+                                                   _gathered(state))
+        line += (f"; an int8-moment image (XOR-delta params on step "
+                 f"{every}) restored onto the mesh, params/step "
+                 f"bit-identical, moments within scale/2 (worst "
+                 f"{report['int8_worst']:.4f})")
+        del back, state
+    log(line)
+    rt.close()
+    del rt
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def report_train_mesh_family(label: str, cfg, rc, r: dict, peak: int,
+                             wall: float, card: str):
+    from repro_torch.configs import ARCHS
+
+    mode = f", moe_mode {rc.moe_mode}" if cfg.moe is not None else ""
+    log(f"{label} ((1 x 1) NCCL mesh): {cfg.arch_id} at full width, "
+        f"{cfg.n_layers} of {ARCHS[cfg.arch_id].n_layers} layers "
+        f"({_stored_params(cfg)} params stored{mode}), "
+        f"B={rc.shape.global_batch} S={rc.shape.seq_len}; step_s "
+        f"{[round(x, 4) for x in r['step_s']]} (the first "
+        f"{r['step_s'][0]:.4f}), resumed "
+        f"{[round(x, 4) for x in r['resumed_step_s']]}"
+        + (f", mesh-free {[round(x, 4) for x in r['nomesh_step_s']]}"
+           if "nomesh_step_s" in r else "")
+        + f" [{card}]")
+    for w in r["writes"] + ([r["int8_write"]] if "int8_write" in r else []):
+        log(f"{label}: image step {w['step']}: {w['bytes']} bytes, "
+            f"snapshot_s {w['snapshot_s']}, write_s {w['write_s']} [{card}]")
+    log(f"{label}: restore_s onto the mesh {r['restore_s']:.4f}, without a "
+        f"mesh {r['restore_nomesh_s']:.4f}"
+        + (f", int8 onto the mesh {r['restore_int8_s']:.4f}"
+           if "restore_int8_s" in r else "")
+        + f"; against the mesh-free run, largest relative difference "
+        f"{r['vs_nomesh']:.3e}; phase {wall:.2f} s; max_memory_allocated "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB) [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1541,6 +1638,11 @@ TRAIN_4K_BATCH, TRAIN_4K_SEQ = 4, 4096
 # time is mostly its ~22 GB images' writes and restores, which shrink
 # with the depth.
 HYBRID_LAYERS, RWKV_LAYERS, WHISPER_LAYERS = 16, 8, 12
+# the depth of hymba-1.5b and rwkv6-3b on the (1 x 1) mesh, at full
+# width, for the smoke's time: each phase also runs a mesh-free twin,
+# and at 2 layers (images of 2.5 and 6.2 GB) takes 20-22 s on an H100
+# 80GB HBM3 at 700 W
+MESH_LAYERS = 2
 # llama-3.2-vision-11b at full width cut to one group of 3 layers, 2 self
 # blocks and 1 cross block (`n_layers = cross_attn_every = 3`;
 # 1,746,960,384 params stored, whisper's and hymba's size; the untied
@@ -1604,6 +1706,7 @@ def phase_train_wide(cfg, rc, root: str, report: dict, label: str):
     report["writes"] = list(rt.ckpt.stats)
     _check_delta_bases(rt, {2: None, 4: 2}, label)
     first = [tuple(h[k] for k in keys) for h in hist]
+    report["losses"] = first
     if not all(math.isfinite(v) for pair in first for v in pair):
         raise AssertionError(f"{label}: losses not finite: {first}")
     log(f"{label}: 6 steps, {keys} {first}, images {rt.ckpt.steps()}")
@@ -1799,6 +1902,12 @@ def main() -> int:
     train_vision_rc = RunConfig(model=train_vision_cfg, shape=ShapeConfig(
         "train_vision_h100", TRAIN_4K_SEQ, TRAIN_4K_BATCH, "train"),
         attn_chunk=128)
+    # hymba-1.5b and rwkv6-3b on the (1 x 1) mesh: full width, cut to
+    # `MESH_LAYERS`, B 4 x S 4096 as their train phases
+    mesh_hybrid_cfg = dataclasses.replace(hybrid_cfg, n_layers=MESH_LAYERS)
+    mesh_hybrid_rc = dataclasses.replace(train_hybrid_rc, model=mesh_hybrid_cfg)
+    mesh_rwkv_cfg = dataclasses.replace(rwkv_cfg, n_layers=MESH_LAYERS)
+    mesh_rwkv_rc = dataclasses.replace(train_rwkv_rc, model=mesh_rwkv_cfg)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     report: dict = {"serve_dense": {}, "serve_moe": {}, "serve_hybrid": {},
                     "serve_rwkv": {}, "serve_whisper": {}, "serve_vision": {},
@@ -1806,7 +1915,9 @@ def main() -> int:
                     "world_elastic": {}, "cli": {}, "quickstart": {},
                     "preempt": {}, "train_moe": {}, "train_hybrid": {},
                     "train_rwkv": {}, "train_whisper": {},
-                    "train_vision": {}}
+                    "train_vision": {}, "train_mesh": {},
+                    "train_mesh_moe": {},
+                    "train_mesh_hybrid": {}, "train_mesh_rwkv": {}}
     counters = {"checksum": (cops, "launches"), "xor_delta": (dops, "launches"),
                 "quantize_int8": (qops, "launches"),
                 "dequantize_int8": (qops, "dequantize_launches")}
@@ -1815,10 +1926,6 @@ def main() -> int:
                    ("checksum", "xor_delta")),
         "int8": (lambda: phase_int8(cfg, rc, root, report),
                  ("checksum", "quantize_int8", "dequantize_int8")),
-        # after phase 2, whose mesh-free losses it is held to
-        "train_mesh": (lambda: phase_train_mesh(cfg, rc, root, report),
-                       ("checksum", "xor_delta", "quantize_int8",
-                        "dequantize_int8")),
         "serve_dense": (lambda: phase_serve(cfg, dense_rc, 8, root,
                                             report["serve_dense"]),
                         ("checksum", "xor_delta")),
@@ -1871,26 +1978,56 @@ def main() -> int:
             train_vision_cfg, train_vision_rc, root, report["train_vision"],
             "train_vision"),
             ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+        # the mesh phases last, on one NCCL group (`nccl_mesh`): after
+        # phase 2 and train_moe, whose mesh-free losses they are held to
+        "train_mesh": (lambda: phase_train_mesh_family(
+            cfg, rc, root, report["train_mesh"], "train_mesh", 4, (2, 4),
+            want=[(x,) for x in report["resume_losses"][:4]], int8=True),
+            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+        # one full image: its 20.6 GB writes and reads are most of the
+        # phase, and train_moe runs XOR, quantize and dequantize on the
+        # same leaves without a mesh
+        "train_mesh_moe": (lambda: phase_train_mesh_family(
+            train_moe_cfg, train_moe_rc, root, report["train_mesh_moe"],
+            "train_mesh_moe", 4, (2,),
+            want=report["train_moe"]["losses"][:4]), ("checksum",)),
+        "train_mesh_hybrid": (lambda: phase_train_mesh_family(
+            mesh_hybrid_cfg, mesh_hybrid_rc, root,
+            report["train_mesh_hybrid"], "train_mesh_hybrid", 3, (2,),
+            int8=True),
+            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+        "train_mesh_rwkv": (lambda: phase_train_mesh_family(
+            mesh_rwkv_cfg, mesh_rwkv_rc, root, report["train_mesh_rwkv"],
+            "train_mesh_rwkv", 3, (2,), int8=True),
+            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
     }
     by_phase, peaks, wall = {}, {}, {}
-    for phase, (drive, _) in paths.items():
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-        t0 = time.monotonic()
-        # a world phase returns the launches of its socket ranks'
-        # processes, which this process's counters cannot see
-        elsewhere = drive() or {}
-        torch.cuda.synchronize()
-        wall[phase] = time.monotonic() - t0
-        by_phase[phase] = {n: getattr(mod, attr) + elsewhere.get(n, 0)
-                           for n, (mod, attr) in counters.items()}
-        peaks[phase] = torch.cuda.max_memory_allocated()
-        log(f"phase {phase} done in {wall[phase]:.1f} s, peak "
-            f"{peaks[phase]} bytes, launches {by_phase[phase]}"
-            + (f" (of them in socket rank processes: {elsewhere})"
-               if elsewhere else ""))
+    try:
+        for phase, (drive, _) in paths.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            t0 = time.monotonic()
+            # a world phase returns the launches of its socket ranks'
+            # processes, which this process's counters cannot see
+            elsewhere = drive() or {}
+            torch.cuda.synchronize()
+            wall[phase] = time.monotonic() - t0
+            by_phase[phase] = {n: getattr(mod, attr) + elsewhere.get(n, 0)
+                               for n, (mod, attr) in counters.items()}
+            peaks[phase] = torch.cuda.max_memory_allocated()
+            log(f"phase {phase} done in {wall[phase]:.1f} s, peak "
+                f"{peaks[phase]} bytes, launches {by_phase[phase]}"
+                + (f" (of them in socket rank processes: {elsewhere})"
+                   if elsewhere else ""))
+    finally:
+        # the mesh phases' NCCL group, made by the first of them
+        if _MESH:
+            import torch.distributed as dist
+
+            _MESH.clear()
+            dist.destroy_process_group()
     shutil.rmtree(root, ignore_errors=True)
     for name in ("serve_dense", "serve_moe", "serve_hybrid", "serve_rwkv",
                  "serve_whisper", "serve_vision"):
@@ -1913,19 +2050,12 @@ def main() -> int:
     log(f"max_memory_allocated resume {peaks['resume']} bytes "
         f"({peaks['resume'] / 2**30:.2f} GiB), int8 {peaks['int8']} bytes "
         f"({peaks['int8'] / 2**30:.2f} GiB) [{card}]")
-    log(f"train_mesh ((1 x 1) NCCL mesh): step_s "
-        f"{[round(x, 4) for x in report['mesh_step_s']]}, resumed "
-        f"{[round(x, 4) for x in report['mesh_resumed_step_s']]}; images "
-        + "; ".join(f"step {w['step']}: {w['bytes']} bytes, snapshot_s "
-                    f"{w['snapshot_s']}, write_s {w['write_s']}"
-                    for w in report["mesh_writes"] + [report["mesh_int8_write"]])
-        + f"; restore_s onto the mesh (step 2) "
-        f"{report['mesh_restore_s']:.4f}, without a mesh (chain 4->2) "
-        f"{report['mesh_restore_nomesh_s']:.4f}, int8 onto the mesh "
-        f"{report['mesh_restore_int8_s']:.4f}; losses against phase 2's, "
-        f"largest relative difference {report['mesh_vs_nomesh']:.3e}; "
-        f"phase {wall['train_mesh']:.2f} s, peak {peaks['train_mesh']} bytes "
-        f"({peaks['train_mesh'] / 2**30:.2f} GiB) [{card}]")
+    for name, c, r in (("train_mesh", cfg, rc),
+                       ("train_mesh_moe", train_moe_cfg, train_moe_rc),
+                       ("train_mesh_hybrid", mesh_hybrid_cfg, mesh_hybrid_rc),
+                       ("train_mesh_rwkv", mesh_rwkv_cfg, mesh_rwkv_rc)):
+        report_train_mesh_family(name, c, r, report[name], peaks[name],
+                                 wall[name], card)
     report_serve("serve_dense", cfg, dense_rc, 8, report["serve_dense"], card)
     report_serve("serve_moe", moe_cfg, moe_rc, 4, report["serve_moe"], card)
     report_serve("serve_hybrid", hybrid_cfg, hybrid_rc, 8,

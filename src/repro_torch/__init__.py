@@ -17,8 +17,8 @@ comments (tests/test_torch_hygiene.py holds them to that), and
 `VERBATIM_FUNCTIONS` the functions and classes copied into otherwise
 rewritten modules.
 
-Mesh training: the dense decoder family trains on a
-`torch.distributed.device_mesh.DeviceMesh` (`MANARuntime(mesh=...)`,
+Mesh training: the dense decoder, MoE, hybrid-SSM and RWKV-6 families
+train on a `torch.distributed.device_mesh.DeviceMesh` (`MANARuntime(mesh=...)`,
 meshes from `repro_torch.launch.mesh`), its state placed as DTensors by
 the reference's sharding rules and spec trees
 (`repro_torch.sharding.rules`, `repro_torch.training.step`); images

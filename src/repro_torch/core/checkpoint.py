@@ -419,7 +419,8 @@ class CheckpointManager:
 
             spec_flat = _flatten(specs) if specs is not None else {}
             flat = {p: distribute_tensor(
-                a, mesh, placements(spec_flat.get(p, PartitionSpec()), mesh),
+                a, mesh, placements(spec_flat.get(p, PartitionSpec()), mesh,
+                                   a.shape),
                 src_data_rank=None) for p, a in flat.items()}
         return _rebuild(flat), man["extra"]
 

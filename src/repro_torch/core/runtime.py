@@ -31,8 +31,7 @@ from repro_torch.core.control import make_control_plane
 from repro_torch.core.split_state import LowerHalf
 from repro_torch.core.two_phase_commit import RankAgent
 from repro_torch.data.pipeline import SyntheticDataset
-from repro_torch.sharding.rules import PartitionSpec as P
-from repro_torch.sharding.rules import batch_axes, placements
+from repro_torch.sharding.rules import placements
 from repro_torch.training.step import abstract_params, init_train_state
 from repro_torch.tree import tree_map
 
@@ -78,8 +77,8 @@ class MANARuntime:
     kernels.  `mesh` (a `DeviceMesh` on `device`'s type, e.g. from
     `repro_torch.launch.mesh.make_mesh`; every rank of it runs this
     runtime in step) places the state's leaves as DTensors by the spec
-    tree and splits each batch over the data axes; the dense decoder
-    family trains on a mesh.  With
+    tree and splits each batch over the data axes; the dense decoder,
+    MoE, hybrid-SSM and RWKV-6 families train on a mesh.  With
     `async_ckpt=True` the agent runs the asynchronous 2PC split on the
     thread writer.  The runtime sets no process-wide switch: a resume
     repeats the uninterrupted run bit for bit on the card without
@@ -152,7 +151,8 @@ class MANARuntime:
 
             mesh = self.lower.mesh
             self.state = tree_map(
-                lambda x, sp: distribute_tensor(x, mesh, placements(sp, mesh)),
+                lambda x, sp: distribute_tensor(
+                    x, mesh, placements(sp, mesh, x.shape)),
                 self.state, self.lower.state_specs)
 
     def restore(self, step: Optional[int] = None) -> int:
@@ -207,13 +207,14 @@ class MANARuntime:
     def _split_batch(self, batch):
         """Every rank made the whole batch (a pure function of (seed,
         step)); each keeps its slice of the leading dim over the mesh's
-        data axes."""
+        data axes, as the shape-aware batch spec places it (a batch the
+        data axes do not divide is replicated)."""
         from torch.distributed.tensor import distribute_tensor
 
-        mesh = self.lower.mesh
-        lead = batch_axes(mesh)
+        mesh, rules = self.lower.mesh, self.lower.rules
         return {k: distribute_tensor(
-            v, mesh, placements(P(lead, *([None] * (v.ndim - 1))), mesh),
+            v, mesh, rules.named(("batch",) + (None,) * (v.ndim - 1),
+                                 v.shape).placements,
             src_data_rank=None) for k, v in batch.items()}
 
     def _maybe_trigger(self, step: int) -> None:

@@ -13,8 +13,9 @@ checkpoint written over one backend restores over another).  PyTorch
 runs eagerly, so there is no compiled executable: on a mesh the train
 step is wrapped to place its output state by the spec tree, as the
 reference's jit places it by its `out_shardings`.  The mesh branch
-holds the dense decoder family (ROADMAP.md §A); the other families
-raise there.  The transport-era elastic reshard below is the
+holds the dense decoder, MoE (`moe_mode` "ep" and "tp"), hybrid-SSM and
+RWKV-6 families; the encoder-decoder and vision families raise there
+(ROADMAP.md §A).  The transport-era elastic reshard below is the
 reference's code.
 """
 from __future__ import annotations
@@ -63,8 +64,9 @@ class LowerHalf:
             if family is not None:
                 raise NotImplementedError(
                     f"{cfg.arch_id}: the {family} family does not train on "
-                    f"a mesh yet (ROADMAP.md §A, 'the other families on a "
-                    f"mesh'); only the dense decoder family does")
+                    f"a mesh yet (ROADMAP.md §A, 'encoder-decoder and "
+                    f"vision on a mesh'); the dense, MoE, hybrid-SSM and "
+                    f"RWKV-6 families do")
         # fault_plan: deterministic chaos injection on the rebuilt
         # lower half's fabric — physical state, never checkpointed
         comm = create_world(transport, n_ranks, fault_plan=fault_plan)
@@ -81,11 +83,9 @@ class LowerHalf:
 
 def _family_off_mesh(cfg: ModelConfig) -> Optional[str]:
     """The model family of `cfg` if it has no mesh path yet, else None
-    (the dense decoder, the one family held on a mesh)."""
-    for family, has in (("MoE", cfg.moe is not None),
-                        ("hybrid-SSM", bool(cfg.ssm_state)),
-                        ("RWKV-6", cfg.rwkv),
-                        ("encoder-decoder", cfg.enc_dec),
+    (the dense decoder, MoE, hybrid-SSM and RWKV-6 families train on a
+    mesh)."""
+    for family, has in (("encoder-decoder", cfg.enc_dec),
                         ("vision cross-attention", bool(cfg.cross_attn_every))):
         if has:
             return family
@@ -100,7 +100,7 @@ def _placed_step(train_step, mesh, specs):
     from repro_torch.tree import tree_map
 
     def place(x, spec):
-        want = placements(spec, mesh)
+        want = placements(spec, mesh, x.shape)
         return x if tuple(x.placements) == want else x.redistribute(mesh,
                                                                     want)
 

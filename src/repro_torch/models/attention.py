@@ -20,9 +20,9 @@ over (B, K) that reads its operands where they lie.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from repro_torch.models.layers import _dense_init, apply_rope
+from repro_torch.models.layers import _dense_init, apply_rope, pad_front
+from repro_torch.sharding.rules import on_local_shards
 
 NEG_INF = -1e9
 
@@ -159,15 +159,12 @@ def _attend(q, k, v, keep):
     a (2 x 2) CPU mesh)."""
     if not hasattr(q, "device_mesh"):
         return _Attend.apply(q, k, v, keep)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard
 
-    mesh = q.device_mesh
     pl = tuple(p if type(p) is Shard and p.dim in (0, 1) else Replicate()
                for p in q.placements)
-    q, k, v = (x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
-               for x in (q, k, v))
-    out = _Attend.apply(q.to_local(), k.to_local(), v.to_local(), keep)
-    return DTensor.from_local(out, mesh, pl, run_check=False)
+    return on_local_shards(lambda q, k, v: _Attend.apply(q, k, v, keep),
+                           (q, k, v), (pl, pl, pl), pl)
 
 
 def _heads_last(blocks):
@@ -274,7 +271,7 @@ def sliding_window_attention(q, k, v, *, window: int, chunk: int = 128):
     chunk = _fit_chunk(S, chunk)
     span = window + chunk
     qh, kh, vh = _heads_first(q, k, v)
-    kh, vh = (F.pad(x, (0, 0, window, 0)) for x in (kh, vh))
+    kh, vh = (pad_front(x, window, 2) for x in (kh, vh))
     outs = []
     for start in range(0, S, chunk):
         keep = _swa_mask(start, window, chunk, span, q.device)

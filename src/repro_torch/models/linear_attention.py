@@ -32,6 +32,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding.rules import on_local_shards
+
 DEFAULT_CHUNK = 32
 LW_MIN = 2.5   # per-step log-decay floor
 SAFE_CHUNK = 32  # hard cap: chunk * LW_MIN = 80 < 88 (f32 exp range)
@@ -47,8 +49,13 @@ def chunked_linear_attention(q, k, v, lw, *, mode: str, u=None,
     """q,k: (B,S,H,dk); v: (B,S,H,dv); lw: (B,S,H,dk) log-decay <= 0.
 
     Returns (out (B,S,H,dv) in q.dtype, final_state (B,H,dk,dv) f32).
+    On a mesh (DTensor inputs) it runs on each rank's local shards
+    (`_on_local_shards`).
     """
     _check_mode(mode)
+    if hasattr(v, "device_mesh"):
+        return _on_local_shards(q, k, v, lw, mode=mode, u=u, state0=state0,
+                                chunk=chunk)
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     chunk = min(chunk, S, SAFE_CHUNK)
@@ -94,6 +101,34 @@ def chunked_linear_attention(q, k, v, lw, *, mode: str, u=None,
     out = out + torch.einsum("bnihk,bnhkv->bnihv", q_dec,
                              torch.stack(before, dim=1))
     return out.reshape(B, S, H, dv).to(q.dtype), state
+
+
+def _on_local_shards(q, k, v, lw, *, mode, u, state0, chunk):
+    """`chunked_linear_attention` of DTensors on each rank's own (B, H)
+    block: the recurrence is independent across batch rows and heads,
+    so q, k, v and lw are placed as v is on the batch and head dims
+    (dims 0 and 2; a replicated operand is sliced locally, a partial one
+    reduced), `u` and `state0` alike on their head dim (`u`, whole over
+    the data axes, gets its gradient there as a partial sum), and the
+    local tensors go through the same ops as without a mesh
+    (`on_local_shards`).  DTensor would otherwise plan a sharding for
+    each op of the engine at each shape: most of a first step on a
+    (2 x 2) CPU mesh."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    R = Replicate()
+    pl = tuple(p if type(p) is Shard and p.dim in (0, 2) else R
+               for p in v.placements)
+    # the (B,H,dk,dv) state and the (H,dk) bonus split as the heads
+    state_pl = tuple(Shard(1) if p == Shard(2) else p for p in pl)
+    u_pl = tuple(Shard(0) if p == Shard(2) else R for p in pl)
+
+    def engine(q, k, v, lw, u, state0):
+        return chunked_linear_attention(q, k, v, lw, mode=mode, u=u,
+                                        state0=state0, chunk=chunk)
+
+    return on_local_shards(engine, (q, k, v, lw, u, state0),
+                           (pl, pl, pl, pl, u_pl, state_pl), (pl, state_pl))
 
 
 def linear_attention_step(q, k, v, lw, *, mode: str, u=None, state=None):

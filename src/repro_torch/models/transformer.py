@@ -47,11 +47,18 @@ so the gradient of all its cross attentions reaches the encoder.  The
 port has no per-name save policies, so "dots" and "comm" act as "full".
 
 On a mesh (`rules` set, leaves DTensors) each block's input is placed by
-its logical axes ("batch", "seq", None) with `_constrain`, the
-reference's `with_sharding_constraint` sites, as a `redistribute`: values
-do not change, only placement.  The embedding runs on local shards
-(`layers._MeshEmbedGather`); every other op propagates its DTensor
-sharding.
+its logical axes ("batch", "seq", None) with `constrain`
+(`repro_torch.sharding.rules`), the reference's
+`with_sharding_constraint` sites, as a `redistribute`: values do not
+change, only placement (an rwkv block has no other site, as in the
+reference; the MoE dispatch has its four, `repro_torch.models.moe`).
+These run on each rank's local shards, each for a reason a real run
+showed (ROADMAP.md section C): the embedding
+(`layers._MeshEmbedGather`), each attention block (`attention._attend`),
+the MoE expert MLP (`moe._experts`) and the chunked linear-attention
+engine of the hybrid and rwkv blocks
+(`linear_attention._on_local_shards`); every other op propagates its
+DTensor sharding.
 """
 from __future__ import annotations
 
@@ -68,6 +75,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.sharding.rules import constrain
 from repro_torch.tree import tree_map
 
 
@@ -265,18 +273,6 @@ def _layer_params(blocks, i: int):
     return blocks[i]
 
 
-def _constrain(x, rules, logical):
-    """`x` placed on the mesh by its logical axes, the reference's
-    `with_sharding_constraint`: a DTensor is redistributed (its values
-    do not change), anything else is returned as it is."""
-    if rules is None or not hasattr(x, "device_mesh"):
-        return x
-    want = rules.named(logical, x.shape).placements
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(rules.mesh, want)
-
-
 def _remat(rc, fn, *args):
     """fn(*args), under the per-block checkpoint where autograd records
     and `rc.remat_policy` asks for remat; every tensor the block reads
@@ -298,7 +294,7 @@ def _encode(params, cfg, rc, rules, frames):
     blocks = _unbind_layers(params["enc_blocks"])
 
     def block(x, p):
-        x = _constrain(x, rules, ("batch", "seq", None))
+        x = constrain(x, rules, ("batch", "seq", None))
         return _mixer_block_seq(cfg, rc, rules, p, x, positions, None,
                                 causal=False)[0]
 
@@ -323,7 +319,7 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
     B, S = tokens.shape
     dtype = getattr(torch, rc.dtype)
     x = L.embed_apply(params["embed"], tokens, dtype)
-    x = _constrain(x, rules, ("batch", "seq", None))
+    x = constrain(x, rules, ("batch", "seq", None))
     positions = torch.arange(S, device=tokens.device)
     enc_out = None
     if cfg.enc_dec:
@@ -334,7 +330,7 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(x, p, enc_out):
-        x = _constrain(x, rules, ("batch", "seq", None))
+        x = constrain(x, rules, ("batch", "seq", None))
         if cfg.rwkv:
             x, aux, cache = _rwkv_block_seq(cfg, rc, p, x)
         else:

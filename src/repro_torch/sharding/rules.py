@@ -83,15 +83,21 @@ def batch_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
 
 
-def placements(spec: Sequence, mesh) -> Tuple[Any, ...]:
+def placements(spec: Sequence, mesh,
+               shape: Optional[Sequence[int]] = None) -> Tuple[Any, ...]:
     """DTensor placements of `spec` on `mesh`: `Shard(d)` on each mesh
-    dim that a tensor dim d names, `Replicate()` on the others."""
+    dim that a tensor dim d names, `Replicate()` on the others.  Given
+    the tensor's `shape`, a dim of size 1 stays whole: its one row is
+    the same values on every rank either way (`spec` names it only over
+    axes of one device, or for "seq"), and DTensor cannot view such a
+    shard away (a batch of 1 on a (1 x 1) mesh fails in the einsums'
+    views)."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = tuple(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
     for d, entry in enumerate(spec):
-        if entry is None:
+        if entry is None or (shape is not None and shape[d] == 1):
             continue
         axes = entry if isinstance(entry, tuple) else (entry,)
         idx = [names.index(a) for a in axes]
@@ -110,10 +116,11 @@ class NamedSharding:
     s.placements)` and `x.redistribute(s.mesh, s.placements)` take."""
     mesh: Any
     spec: PartitionSpec
+    shape: Optional[Tuple[int, ...]] = None
 
     @property
     def placements(self) -> Tuple[Any, ...]:
-        return placements(self.spec, self.mesh)
+        return placements(self.spec, self.mesh, self.shape)
 
 
 class ShardingRules:
@@ -184,7 +191,51 @@ class ShardingRules:
 
     def named(self, logical: Sequence[Optional[str]],
               shape: Optional[Sequence[int]] = None) -> NamedSharding:
-        return NamedSharding(self.mesh, self.spec(logical, shape))
+        return NamedSharding(self.mesh, self.spec(logical, shape),
+                             None if shape is None else tuple(shape))
+
+
+def constrain(x, rules: Optional[ShardingRules], logical):
+    """`x` placed on the mesh by its logical axes, the reference's
+    `with_sharding_constraint`: a DTensor is redistributed (its values
+    do not change), anything else is returned as it is."""
+    if rules is None or not hasattr(x, "device_mesh"):
+        return x
+    want = rules.named(logical, x.shape).placements
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(rules.mesh, want)
+
+
+def on_local_shards(fn, args, want, out):
+    """`fn(*local shards of args)` as a DTensor (a tuple of them): each
+    DTensor arg is first placed as `want` (one placement tuple for each;
+    a None arg passes as None), and each result takes `out`'s placements
+    (one tuple, or a tuple of them for a tuple of results).  An arg
+    whole on a mesh dim where the results are not (the ranks there
+    compute different parts) gets its gradient there as a partial sum
+    over those ranks.  For ops whose DTensor sharding propagation is
+    missing, faulty or planned anew at each shape (ROADMAP.md section C,
+    "DTensor ops on local shards")."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    many = isinstance(out[0], tuple)
+    outs = out if many else (out,)
+    split = tuple(o != Replicate() for o in outs[0])
+    mesh = next(a for a in args if a is not None).device_mesh
+
+    def local(t, pl):
+        if t is None:
+            return None
+        t = t if tuple(t.placements) == pl else t.redistribute(mesh, pl)
+        return t.to_local(grad_placements=tuple(
+            Partial() if p == Replicate() and s else p
+            for p, s in zip(pl, split)))
+
+    y = fn(*(local(t, pl) for t, pl in zip(args, want)))
+    wrap = [DTensor.from_local(t, mesh, o, run_check=False)
+            for t, o in zip(y if many else (y,), outs)]
+    return tuple(wrap) if many else wrap[0]
 
 
 def make_rules(mesh, **kw) -> ShardingRules:

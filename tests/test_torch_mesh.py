@@ -26,11 +26,6 @@ reference's elastic-restart config), B 8 x S 64:
     `test_elastic_restart_across_mesh_shapes`: (4 x 2) -> (2 x 4) -> no
     mesh, `slow` as the reference's is.
 """
-import json
-import os
-import subprocess
-import sys
-
 import numpy as np
 import pytest
 
@@ -45,8 +40,6 @@ from repro_torch.core.runtime import MANARuntime
 
 import _mesh_ranks  # tests/ is on the path (conftest.py)
 
-HELPER = _mesh_ranks.__file__
-ENV = dict(os.environ, PYTHONPATH=_mesh_ranks.SRC)
 # rtol between mesh factorizations: the reference's own bound
 MESH_RTOL = 5e-3
 # rtol between the two packages (bf16 compute)
@@ -55,13 +48,7 @@ PACKAGE_RTOL = 2e-2
 F32_RTOL = 1e-4
 
 
-def world(scenario: str, n: int, d, arg: str, timeout: int):
-    """Rank 0's result of `scenario` in a world of `n` gloo ranks."""
-    res = subprocess.run([sys.executable, HELPER, scenario, str(n), str(d),
-                          arg], env=ENV, capture_output=True, text=True,
-                         timeout=timeout)
-    assert res.returncode == 0, res.stderr[-4000:]
-    return json.loads(res.stdout.strip().splitlines()[-1])
+world = _mesh_ranks.world
 
 
 def _port_runtime(d, **kw):

@@ -6,8 +6,9 @@ run on a real `DeviceMesh` over a `fake` process group of 512 ranks
 (`FakeStore`: no communication), each mesh built over the world's first
 ranks.  Every spec tree (`train_state_specs`, `batch_specs` for every
 shape, `decode_state_specs`) is held leaf by leaf, exactly, against the
-reference's for the 10 archs, on meshes (4, 2), (16, 16) and (2, 16, 16),
-with each sharding switch (`fsdp`, `zero1` off, `moe_mode="tp"`,
+reference's for the 10 archs, on meshes (4, 2), (16, 16) and (2, 16, 16)
+and on meshes with axes of one device, (1, 1) and (4, 1), with each
+sharding switch (`fsdp`, `zero1` off, `moe_mode="tp"`,
 `seq_shard`, `kv_time_shard`).  The reference's own rule checks
 (tests/test_sharding.py, `slow` there) run here as fast cases, and the
 placements a spec turns into are held to the block each device gets in
@@ -48,6 +49,8 @@ from repro_torch.sharding.rules import PartitionSpec as P
 from repro_torch.training import step
 
 MESHES = {"4x2": ((4, 2), ("data", "model")),
+          "1x1": ((1, 1), ("data", "model")),
+          "4x1": ((4, 1), ("data", "model")),
           "16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 SWITCHES = {"default": {}, "fsdp": {"fsdp": True},
@@ -225,6 +228,28 @@ def test_placements_and_named_sharding():
         assert tree == {"a": P(None, None), "b": {"c": P(None, "model")}}
 
 
+def test_a_dim_of_one_stays_whole_in_placements_only():
+    """On axes of one device the spec names a dim of size 1 as the
+    reference's does; only the placements keep it whole (the same values
+    on every rank)."""
+    with fake_world():
+        for name in ("1x1", "4x1"):
+            mesh = port_mesh_of(*MESHES[name])
+            r = rules.ShardingRules(mesh)
+            ref = jrules.ShardingRules(AbstractMesh(*MESHES[name]))
+            logical, shape = ("batch", None, "heads"), (1, 3, 1)
+            assert tuple(r.spec(logical, shape)) == tuple(
+                ref.spec(logical, shape))
+            assert r.spec(logical, shape)[2] == "model"
+            ns = r.named(logical, shape)
+            assert [str(p) for p in ns.placements] == ["R", "R"]
+            assert [str(p) for p in rules.placements(ns.spec, mesh)][1] \
+                == "S(2)"
+        ns = rules.ShardingRules(port_mesh_of(*MESHES["1x1"])).named(
+            ("batch", None), (4, 3))
+        assert [str(p) for p in ns.placements] == ["S(0)", "R"]
+
+
 def test_make_mesh_needs_a_process_group_of_its_size():
     assert not dist.is_initialized()
     with pytest.raises(RuntimeError, match="init_process_group"):
@@ -275,23 +300,43 @@ def test_abstract_state_and_batch_specs_match_reference(arch):
             == _shapes_dtypes(jmake_batch_specs(jcfg, jshp, jnp.bfloat16))
 
 
-def test_mesh_lower_half_holds_the_dense_family_only():
-    """`LowerHalf.build(mesh=...)` places the dense decoder by its spec
-    tree and raises, naming the ROADMAP item, for a family not held on
-    a mesh yet."""
+# a leaf of each family held on a mesh, and its spec on (4 x 2)
+MESH_FAMILY_LEAVES = {
+    ("qwen2-0.5b", "ep"): ("opt/m/embed/embedding", P("model", "data")),
+    ("mixtral-8x7b", "ep"): ("params/blocks/moe/wi",
+                             P(None, "model", None, None)),
+    ("mixtral-8x7b", "tp"): ("params/blocks/moe/wi",
+                             P(None, None, None, "model")),
+    ("hymba-1.5b", "ep"): ("params/blocks/mamba/wx", P(None, None, "model")),
+    ("rwkv6-3b", "ep"): ("params/blocks/tm/wB", P(None, None, "model", None)),
+}
+
+
+def _spec_at(specs, path):
+    for k in path.split("/"):
+        specs = specs[k]
+    return specs
+
+
+def test_mesh_lower_half_holds_four_families_and_refuses_two():
+    """`LowerHalf.build(mesh=...)` places the dense, MoE (in "ep" and
+    "tp" modes), hybrid-SSM and RWKV-6 families by their spec trees, and
+    raises, naming the ROADMAP item, for the encoder-decoder and vision
+    families, not held on a mesh yet."""
     with fake_world():
         mesh = port_mesh_of(*MESHES["4x2"])
-        cfg = ARCHS["qwen2-0.5b"]
-        lower = LowerHalf.build(cfg, RunConfig(model=cfg, shape=SHAPES[0]),
-                                mesh=mesh)
-        try:
-            assert lower.mesh is mesh and lower.rules.mesh is mesh
-            assert lower.state_specs["opt"]["m"]["embed"]["embedding"] \
-                == P("model", "data")
-        finally:
-            lower.comm.close()
-        for arch in ("mixtral-8x7b", "hymba-1.5b", "rwkv6-3b",
-                     "whisper-large-v3", "llama-3.2-vision-11b"):
+        for (arch, mode), (path, want) in MESH_FAMILY_LEAVES.items():
+            cfg = ARCHS[arch]
+            lower = LowerHalf.build(
+                cfg, RunConfig(model=cfg, shape=SHAPES[0], moe_mode=mode),
+                mesh=mesh)
+            try:
+                assert lower.mesh is mesh and lower.rules.mesh is mesh
+                assert lower.rules.moe_mode == mode
+                assert _spec_at(lower.state_specs, path) == want, arch
+            finally:
+                lower.comm.close()
+        for arch in ("whisper-large-v3", "llama-3.2-vision-11b"):
             cfg = ARCHS[arch]
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 LowerHalf.build(cfg, RunConfig(model=cfg, shape=SHAPES[0]),
