@@ -41,8 +41,9 @@ each fatal on failure:
      (dequantize kernel); params and step bit-identical, moments within
      scale/2, every chunk's manifest digest equal to the numpy
      `checksum_np` of its file;
-  train_mesh, train_mesh_moe, train_mesh_hybrid, train_mesh_rwkv (run
-     last, after the train phases): the main path on a `DeviceMesh`
+  train_mesh, train_mesh_moe, train_mesh_hybrid, train_mesh_rwkv,
+     train_mesh_whisper, train_mesh_vision (run last, after the train
+     phases): the main path on a `DeviceMesh`
      through `MANARuntime(mesh=...)` on a (1 x 1) ("data", "model") mesh
      over an NCCL world of 1 made in this process (`HashStore`; made by
      the first mesh phase, shared by the others and destroyed after the
@@ -61,11 +62,15 @@ each fatal on failure:
      int8 image.  train_mesh_moe: train_moe's config (Mixtral-8x7B at
      full width, 1 layer, B 1 x S 8192, 16 dispatch groups of 512
      tokens, `moe_mode="ep"`), 4 steps with one full image at step 2,
-     held to train_moe's steps 0-3.  train_mesh_hybrid and
-     train_mesh_rwkv: hymba-1.5b and rwkv6-3b at full width cut to 2
-     layers (`MESH_LAYERS`), B 4 x S 4096: 3 steps without a mesh, then
-     3 on the mesh from the same seed with an image at step 2, and the
-     int8 image;
+     held to train_moe's steps 0-3.  train_mesh_hybrid,
+     train_mesh_rwkv and train_mesh_whisper: hymba-1.5b, rwkv6-3b and
+     whisper-large-v3 at full width cut to 2 layers (`MESH_LAYERS`;
+     whisper in both stacks, 1500 frames a sample), B 4 x S 4096: 3 steps
+     without a mesh, then 3 on the mesh from the same seed with an image
+     at step 2, and the int8 image.  train_mesh_vision: train_vision's
+     config (llama-3.2-vision-11b at full width, one group of 3 layers,
+     1600 patches a sample), 4 steps with one full image at step 2, held
+     to train_vision's steps 0-3;
   4. report: step times, image bytes, write/restore seconds, peak device
      memory, and one JSON line of the kernels with their launches on the
      main path.  The counts are set to 0 just before each main-path
@@ -75,8 +80,8 @@ each fatal on failure:
      counts that a world phase's spawned socket ranks report from their
      own processes; each phase must launch the kernels of its path (2,
      cli: checksum, XOR; 3: checksum, quantize, dequantize; train_mesh,
-     train_mesh_hybrid, train_mesh_rwkv: all four; train_mesh_moe:
-     checksum; serving:
+     train_mesh_hybrid, train_mesh_rwkv, train_mesh_whisper: all four;
+     train_mesh_moe, train_mesh_vision: checksum; serving:
      checksum, XOR; world_pipeline and world_cross: XOR; quickstart,
      preempt: checksum; train_moe, train_hybrid, train_rwkv,
      train_whisper, train_vision: all four), and `launches` is their
@@ -160,15 +165,15 @@ each fatal on failure:
      phase 3 checks qwen2-0.5b's.  Free disk under the phase's directory
      is checked before the images (it fails with the numbers), and each
      image directory is deleted when its check is done.  train_hybrid:
-     the same run for hymba-1.5b at full width cut to 16 of 32 layers
-     (950,632,768 params stored; heads padded to 48 over 6), B 4 x S 4096
+     the same run for hymba-1.5b at full width cut to 8 of 32 layers
+     (526,542,784 params stored; heads padded to 48 over 6), B 4 x S 4096
      (see `TRAIN_4K_BATCH`; four times hymba's SWA window, so the
      sliding-window path); its losses must repeat bit for bit.
      train_rwkv: the same run for rwkv6-3b at full width cut to 8 of 32
      layers (1,072,667,136 params stored, heads padded 40 -> 48), B 4 x S
      4096 as train_hybrid.  train_whisper: the same run for
-     whisper-large-v3 at full width cut to 12 of 32 layers in both stacks
-     (982,218,240 params stored), B 4 x S 4096 decoder tokens, 1500
+     whisper-large-v3 at full width cut to 8 of 32 layers in both stacks
+     (699,077,120 params stored), B 4 x S 4096 decoder tokens, 1500
      frames a sample.  These three depths are cut to keep the whole smoke
      inside its time limit (see `HYBRID_LAYERS`).  train_vision: the same
      run for llama-3.2-vision-11b at full width cut to one group of 3
@@ -1028,12 +1033,9 @@ def phase_train_mesh_family(cfg, rc, root: str, report: dict, label: str,
 
 def report_train_mesh_family(label: str, cfg, rc, r: dict, peak: int,
                              wall: float, card: str):
-    from repro_torch.configs import ARCHS
-
     mode = f", moe_mode {rc.moe_mode}" if cfg.moe is not None else ""
     log(f"{label} ((1 x 1) NCCL mesh): {cfg.arch_id} at full width, "
-        f"{cfg.n_layers} of {ARCHS[cfg.arch_id].n_layers} layers "
-        f"({_stored_params(cfg)} params stored{mode}), "
+        f"{_depth(cfg)} ({_stored_params(cfg)} params stored{mode}), "
         f"B={rc.shape.global_batch} S={rc.shape.seq_len}; step_s "
         f"{[round(x, 4) for x in r['step_s']]} (the first "
         f"{r['step_s'][0]:.4f}), resumed "
@@ -1634,14 +1636,17 @@ TRAIN_4K_BATCH, TRAIN_4K_SEQ = 4, 4096
 # fraction of the depth that fits one card (hymba 32 of 32 layers, rwkv
 # 16 of 32, whisper 24 + 24 of 32 + 32, each ~1.8 B params stored and
 # 71-74 GB at its peak with an image in flight) so that the whole smoke,
-# with its vision phases, stays well inside its time limit: each phase's
-# time is mostly its ~22 GB images' writes and restores, which shrink
-# with the depth.
-HYBRID_LAYERS, RWKV_LAYERS, WHISPER_LAYERS = 16, 8, 12
-# the depth of hymba-1.5b and rwkv6-3b on the (1 x 1) mesh, at full
-# width, for the smoke's time: each phase also runs a mesh-free twin,
-# and at 2 layers (images of 2.5 and 6.2 GB) takes 20-22 s on an H100
-# 80GB HBM3 at 700 W
+# with its vision and mesh phases, stays well inside its time limit:
+# each phase's time is mostly its images' writes and restores, which
+# shrink with the depth.  At 16 and 12 + 12 layers hymba's and whisper's
+# took 85.2 and 93.2 s of a 1149.6 s smoke on a slow host (an H100 80GB
+# HBM3 at 700 W, whose host ran the other phases 14% slower than the
+# fastest seen), past the smoke's 1,120 s budget.
+HYBRID_LAYERS, RWKV_LAYERS, WHISPER_LAYERS = 8, 8, 8
+# the depth of hymba-1.5b, rwkv6-3b and whisper-large-v3 (both stacks)
+# on the (1 x 1) mesh, at full width, for the smoke's time: each phase
+# also runs a mesh-free twin, and at 2 layers (images of 2.5, 6.2 and
+# 3.3 GB) each takes 16-30 s on an H100 80GB HBM3 at 700 W
 MESH_LAYERS = 2
 # llama-3.2-vision-11b at full width cut to one group of 3 layers, 2 self
 # blocks and 1 cross block (`n_layers = cross_attn_every = 3`;
@@ -1739,8 +1744,8 @@ def phase_train_wide(cfg, rc, root: str, report: dict, label: str):
     phase_int8(cfg, rc, root, report, label=label)
 
 
-def report_train_wide(label: str, cfg, rc, r: dict, peak: int, wall: float,
-                      card: str):
+def _depth(cfg) -> str:
+    """How deep `cfg` is against its arch's full config."""
     from repro_torch.configs import ARCHS
 
     full = ARCHS[cfg.arch_id]
@@ -1754,7 +1759,12 @@ def report_train_wide(label: str, cfg, rc, r: dict, peak: int, wall: float,
         depth += (f" ({cfg.n_layers // cfg.cross_attn_every} group(s) of "
                   f"{cfg.cross_attn_every - 1} self blocks and a cross block "
                   f"over {cfg.vision_tokens} patches a sample)")
-    log(f"{label}: {cfg.arch_id} at full width, {depth} "
+    return depth
+
+
+def report_train_wide(label: str, cfg, rc, r: dict, peak: int, wall: float,
+                      card: str):
+    log(f"{label}: {cfg.arch_id} at full width, {_depth(cfg)} "
         f"({_stored_params(cfg)} params stored; d {cfg.d_model}, "
         f"{cfg.n_heads_padded}/{cfg.n_kv_heads_padded} padded heads, d_ff "
         f"{cfg.d_ff}"
@@ -1908,6 +1918,12 @@ def main() -> int:
     mesh_hybrid_rc = dataclasses.replace(train_hybrid_rc, model=mesh_hybrid_cfg)
     mesh_rwkv_cfg = dataclasses.replace(rwkv_cfg, n_layers=MESH_LAYERS)
     mesh_rwkv_rc = dataclasses.replace(train_rwkv_rc, model=mesh_rwkv_cfg)
+    # whisper-large-v3 on the (1 x 1) mesh: full width, both stacks cut to
+    # `MESH_LAYERS`, train_whisper's batch and 1500 frames a sample
+    mesh_whisper_cfg = dataclasses.replace(
+        whisper_cfg, n_layers=MESH_LAYERS, n_enc_layers=MESH_LAYERS)
+    mesh_whisper_rc = dataclasses.replace(train_whisper_rc,
+                                          model=mesh_whisper_cfg)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     report: dict = {"serve_dense": {}, "serve_moe": {}, "serve_hybrid": {},
                     "serve_rwkv": {}, "serve_whisper": {}, "serve_vision": {},
@@ -1917,7 +1933,8 @@ def main() -> int:
                     "train_rwkv": {}, "train_whisper": {},
                     "train_vision": {}, "train_mesh": {},
                     "train_mesh_moe": {},
-                    "train_mesh_hybrid": {}, "train_mesh_rwkv": {}}
+                    "train_mesh_hybrid": {}, "train_mesh_rwkv": {},
+                    "train_mesh_whisper": {}, "train_mesh_vision": {}}
     counters = {"checksum": (cops, "launches"), "xor_delta": (dops, "launches"),
                 "quantize_int8": (qops, "launches"),
                 "dequantize_int8": (qops, "dequantize_launches")}
@@ -2000,6 +2017,17 @@ def main() -> int:
             mesh_rwkv_cfg, mesh_rwkv_rc, root, report["train_mesh_rwkv"],
             "train_mesh_rwkv", 3, (2,), int8=True),
             ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+        "train_mesh_whisper": (lambda: phase_train_mesh_family(
+            mesh_whisper_cfg, mesh_whisper_rc, root,
+            report["train_mesh_whisper"], "train_mesh_whisper", 3, (2,),
+            int8=True),
+            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+        # as train_mesh_moe: one full ~21 GB image, and train_vision runs
+        # XOR, quantize and dequantize on the same leaves without a mesh
+        "train_mesh_vision": (lambda: phase_train_mesh_family(
+            train_vision_cfg, train_vision_rc, root,
+            report["train_mesh_vision"], "train_mesh_vision", 4, (2,),
+            want=report["train_vision"]["losses"][:4]), ("checksum",)),
     }
     by_phase, peaks, wall = {}, {}, {}
     try:
@@ -2053,7 +2081,11 @@ def main() -> int:
     for name, c, r in (("train_mesh", cfg, rc),
                        ("train_mesh_moe", train_moe_cfg, train_moe_rc),
                        ("train_mesh_hybrid", mesh_hybrid_cfg, mesh_hybrid_rc),
-                       ("train_mesh_rwkv", mesh_rwkv_cfg, mesh_rwkv_rc)):
+                       ("train_mesh_rwkv", mesh_rwkv_cfg, mesh_rwkv_rc),
+                       ("train_mesh_whisper", mesh_whisper_cfg,
+                        mesh_whisper_rc),
+                       ("train_mesh_vision", train_vision_cfg,
+                        train_vision_rc)):
         report_train_mesh_family(name, c, r, report[name], peaks[name],
                                  wall[name], card)
     report_serve("serve_dense", cfg, dense_rc, 8, report["serve_dense"], card)

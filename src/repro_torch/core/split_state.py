@@ -13,10 +13,9 @@ checkpoint written over one backend restores over another).  PyTorch
 runs eagerly, so there is no compiled executable: on a mesh the train
 step is wrapped to place its output state by the spec tree, as the
 reference's jit places it by its `out_shardings`.  The mesh branch
-holds the dense decoder, MoE (`moe_mode` "ep" and "tp"), hybrid-SSM and
-RWKV-6 families; the encoder-decoder and vision families raise there
-(ROADMAP.md §A).  The transport-era elastic reshard below is the
-reference's code.
+holds every family: dense, MoE (`moe_mode` "ep" and "tp"), hybrid-SSM,
+RWKV-6, encoder-decoder and vision cross-attention.  The transport-era
+elastic reshard below is the reference's code.
 """
 from __future__ import annotations
 
@@ -59,14 +58,6 @@ class LowerHalf:
         from repro_torch.training.step import (make_train_step,
                                                train_state_specs)
 
-        if mesh is not None:
-            family = _family_off_mesh(cfg)
-            if family is not None:
-                raise NotImplementedError(
-                    f"{cfg.arch_id}: the {family} family does not train on "
-                    f"a mesh yet (ROADMAP.md §A, 'encoder-decoder and "
-                    f"vision on a mesh'); the dense, MoE, hybrid-SSM and "
-                    f"RWKV-6 families do")
         # fault_plan: deterministic chaos injection on the rebuilt
         # lower half's fabric — physical state, never checkpointed
         comm = create_world(transport, n_ranks, fault_plan=fault_plan)
@@ -79,17 +70,6 @@ class LowerHalf:
         specs = train_state_specs(cfg, rc, rules)
         step = _placed_step(make_train_step(cfg, rc, rules), mesh, specs)
         return cls(mesh, rules, step, specs, comm, transport)
-
-
-def _family_off_mesh(cfg: ModelConfig) -> Optional[str]:
-    """The model family of `cfg` if it has no mesh path yet, else None
-    (the dense decoder, MoE, hybrid-SSM and RWKV-6 families train on a
-    mesh)."""
-    for family, has in (("encoder-decoder", cfg.enc_dec),
-                        ("vision cross-attention", bool(cfg.cross_attn_every))):
-        if has:
-            return family
-    return None
 
 
 def _placed_step(train_step, mesh, specs):

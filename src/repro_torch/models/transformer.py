@@ -46,19 +46,24 @@ inputs are its stream and the encoder's output (or the image patches),
 so the gradient of all its cross attentions reaches the encoder.  The
 port has no per-name save policies, so "dots" and "comm" act as "full".
 
-On a mesh (`rules` set, leaves DTensors) each block's input is placed by
-its logical axes ("batch", "seq", None) with `constrain`
-(`repro_torch.sharding.rules`), the reference's
-`with_sharding_constraint` sites, as a `redistribute`: values do not
-change, only placement (an rwkv block has no other site, as in the
-reference; the MoE dispatch has its four, `repro_torch.models.moe`).
-These run on each rank's local shards, each for a reason a real run
-showed (ROADMAP.md section C): the embedding
-(`layers._MeshEmbedGather`), each attention block (`attention._attend`),
-the MoE expert MLP (`moe._experts`) and the chunked linear-attention
-engine of the hybrid and rwkv blocks
-(`linear_attention._on_local_shards`); every other op propagates its
-DTensor sharding.
+On a mesh (`rules` set, leaves DTensors), every family trains.  Each
+block's input, an encoder block's too, is placed by its logical axes
+("batch", "seq", None) with `constrain` (`repro_torch.sharding.rules`),
+the reference's `with_sharding_constraint` sites, as a `redistribute`:
+values do not change, only placement (an rwkv block has no other site,
+as in the reference; the MoE dispatch has its four,
+`repro_torch.models.moe`).  The frames or patches arrive split over the
+data axes like the tokens; cross attention places its queries and the
+encoder's (or the patches') keys alike, split on batch and KV heads
+only, so every rank attends over all Te keys; the encoder output's
+gradient sums every decoder block's, each a DTensor partial sum over
+"model" where the K/V projections split heads.  These run on each
+rank's local shards, each for a reason a real run showed (ROADMAP.md
+section C): the embedding (`layers._MeshEmbedGather`), each attention
+block, self or cross (`attention._attend`), the MoE expert MLP
+(`moe._experts`) and the chunked linear-attention engine of the hybrid
+and rwkv blocks (`linear_attention._on_local_shards`); every other op
+propagates its DTensor sharding.
 """
 from __future__ import annotations
 

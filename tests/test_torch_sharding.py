@@ -300,15 +300,24 @@ def test_abstract_state_and_batch_specs_match_reference(arch):
             == _shapes_dtypes(jmake_batch_specs(jcfg, jshp, jnp.bfloat16))
 
 
-# a leaf of each family held on a mesh, and its spec on (4 x 2)
+# leaves of each family held on a mesh, and their specs on (4 x 2): the
+# reference's `train_state_specs` values
 MESH_FAMILY_LEAVES = {
-    ("qwen2-0.5b", "ep"): ("opt/m/embed/embedding", P("model", "data")),
-    ("mixtral-8x7b", "ep"): ("params/blocks/moe/wi",
-                             P(None, "model", None, None)),
-    ("mixtral-8x7b", "tp"): ("params/blocks/moe/wi",
-                             P(None, None, None, "model")),
-    ("hymba-1.5b", "ep"): ("params/blocks/mamba/wx", P(None, None, "model")),
-    ("rwkv6-3b", "ep"): ("params/blocks/tm/wB", P(None, None, "model", None)),
+    ("qwen2-0.5b", "ep"): (("opt/m/embed/embedding", P("model", "data")),),
+    ("mixtral-8x7b", "ep"): (("params/blocks/moe/wi",
+                              P(None, "model", None, None)),),
+    ("mixtral-8x7b", "tp"): (("params/blocks/moe/wi",
+                              P(None, None, None, "model")),),
+    ("hymba-1.5b", "ep"): (("params/blocks/mamba/wx",
+                            P(None, None, "model")),),
+    ("rwkv6-3b", "ep"): (("params/blocks/tm/wB",
+                          P(None, None, "model", None)),),
+    ("whisper-large-v3", "ep"): (
+        ("opt/m/enc_blocks/mlp/wi", P("data", None, "model")),
+        ("params/blocks/xattn/wk", P(None, None, "model", None))),
+    ("llama-3.2-vision-11b", "ep"): (
+        ("opt/m/self_blocks/attn/wq", P("data", None, None, "model", None)),
+        ("params/cross_blocks/xattn/wk", P(None, None, "model", None))),
 }
 
 
@@ -318,14 +327,15 @@ def _spec_at(specs, path):
     return specs
 
 
-def test_mesh_lower_half_holds_four_families_and_refuses_two():
-    """`LowerHalf.build(mesh=...)` places the dense, MoE (in "ep" and
-    "tp" modes), hybrid-SSM and RWKV-6 families by their spec trees, and
-    raises, naming the ROADMAP item, for the encoder-decoder and vision
-    families, not held on a mesh yet."""
+def test_mesh_lower_half_holds_all_six_families():
+    """`LowerHalf.build(mesh=...)` places every family by its spec tree:
+    the dense, MoE (in "ep" and "tp" modes), hybrid-SSM, RWKV-6,
+    encoder-decoder (the encoder's ZeRO-1 moments, the decoder's cross
+    attention) and vision cross-attention families (a self block's leaf
+    with its two layer dims, a cross block's cross attention)."""
     with fake_world():
         mesh = port_mesh_of(*MESHES["4x2"])
-        for (arch, mode), (path, want) in MESH_FAMILY_LEAVES.items():
+        for (arch, mode), leaves in MESH_FAMILY_LEAVES.items():
             cfg = ARCHS[arch]
             lower = LowerHalf.build(
                 cfg, RunConfig(model=cfg, shape=SHAPES[0], moe_mode=mode),
@@ -333,11 +343,8 @@ def test_mesh_lower_half_holds_four_families_and_refuses_two():
             try:
                 assert lower.mesh is mesh and lower.rules.mesh is mesh
                 assert lower.rules.moe_mode == mode
-                assert _spec_at(lower.state_specs, path) == want, arch
+                for path, want in leaves:
+                    assert _spec_at(lower.state_specs, path) == want, \
+                        (arch, path)
             finally:
                 lower.comm.close()
-        for arch in ("whisper-large-v3", "llama-3.2-vision-11b"):
-            cfg = ARCHS[arch]
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                LowerHalf.build(cfg, RunConfig(model=cfg, shape=SHAPES[0]),
-                                mesh=mesh)

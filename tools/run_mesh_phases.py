@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""`chip_smoke.py`'s encoder-decoder and vision mesh phases alone, on one
+GPU: a short call that compiles and checks them before the whole smoke.
+
+    python3 tools/run_mesh_phases.py [whisper] [vision]
+
+It builds the kernels, then runs `chip_smoke.phase_train_mesh_family`
+for each family named (both by default) at the smoke's cells, on the
+smoke's (1 x 1) NCCL mesh: whisper-large-v3 at full width cut to
+`MESH_LAYERS` in both stacks (3 steps beside a mesh-free twin, an image
+at step 2, the int8 image), and llama-3.2-vision-11b at train_vision's
+cell (4 steps, one full image at step 2).  The smoke holds vision to
+train_vision's losses; here, where train_vision does not run, it runs
+its own mesh-free twin of the same 4 steps.  Each phase prints the
+smoke's report lines, its wall seconds, its peak device memory and the
+kernels' launches, beside the card's name and power limit; the last
+line is "run_mesh_phases: OK".
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main(argv) -> int:
+    import torch
+
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+    import chip_smoke as smoke
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.checksum import ops as cops
+    from repro_torch.kernels.delta import ops as dops
+    from repro_torch.kernels.quantize import ops as qops
+
+    card = smoke.card_line()
+    smoke.log(card, f"torch {torch.__version__}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smoke.log(f"kernels built in {_build.build_all():.2f} s")
+
+    def shape(name):
+        return ShapeConfig(name, smoke.TRAIN_4K_SEQ, smoke.TRAIN_4K_BATCH,
+                           "train")
+
+    whisper = dataclasses.replace(
+        ARCHS["whisper-large-v3"], n_layers=smoke.MESH_LAYERS,
+        n_enc_layers=smoke.MESH_LAYERS)
+    vision = dataclasses.replace(
+        ARCHS["llama-3.2-vision-11b"], n_layers=smoke.VISION_LAYERS,
+        cross_attn_every=smoke.VISION_LAYERS)
+    cells = {
+        "whisper": (whisper, RunConfig(model=whisper,
+                                       shape=shape("train_whisper_h100"),
+                                       attn_chunk=128), 3, True),
+        "vision": (vision, RunConfig(model=vision,
+                                     shape=shape("train_vision_h100"),
+                                     attn_chunk=128), 4, False)}
+    counters = ((cops, "launches"), (dops, "launches"), (qops, "launches"),
+                (qops, "dequantize_launches"))
+    root = tempfile.mkdtemp(prefix="run_mesh_phases_")
+    try:
+        for name in argv or list(cells):
+            cfg, rc, steps, int8 = cells[name]
+            label = f"train_mesh_{name}"
+            for mod, attr in counters:
+                setattr(mod, attr, 0)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            report: dict = {}
+            t0 = time.monotonic()
+            smoke.phase_train_mesh_family(cfg, rc, root, report, label,
+                                          steps, (2,), int8=int8)
+            torch.cuda.synchronize()
+            smoke.report_train_mesh_family(
+                label, cfg, rc, report, torch.cuda.max_memory_allocated(),
+                time.monotonic() - t0, card)
+            smoke.log(f"{label}: launches checksum, XOR, quantize, "
+                      f"dequantize {[getattr(m, a) for m, a in counters]}")
+    finally:
+        if smoke._MESH:
+            import torch.distributed as dist
+
+            smoke._MESH.clear()
+            dist.destroy_process_group()
+    smoke.log("run_mesh_phases: OK")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
