@@ -71,6 +71,28 @@ each fatal on failure:
      config (llama-3.2-vision-11b at full width, one group of 3 layers,
      1600 patches a sample), 4 steps with one full image at step 2, held
      to train_vision's steps 0-3;
+  serve_mesh_dense, serve_mesh_moe, serve_mesh_hybrid, serve_mesh_rwkv,
+     serve_mesh_whisper, serve_mesh_vision (last, after the train mesh
+     phases, on the same NCCL group): the serving path on the (1 x 1)
+     mesh with `kv_time_shard` (the cache's time dim over "model", as the
+     reference's serving cells shard it; over one device the slot write
+     still takes its local-shard path), through `make_serve_steps(cfg,
+     rc, rules)` (`phase_serve_mesh`): params re-initialised from the
+     serve phase's seed and placed by `train_state_specs(...)["params"]`,
+     the prompts by `batch_specs`, each token by ("batch", None), every
+     param and decode-state leaf a DTensor placed by its spec (the
+     decode state by `decode_state_specs`, after the prefill and every
+     step).  Prefill and 16 greedy tokens: tokens equal to the mesh-free
+     run's, logits bit-equal (or else within 5e-3 of their norm, the
+     largest difference printed); the XOR-delta image at token 10 (on a
+     full one at 6) restored onto the mesh decodes the next tokens again
+     bit for bit, and restored without a mesh equals the gathered
+     state.  serve_mesh_dense, _moe, _hybrid and _rwkv serve their
+     serve_* cells uncut and are held to those phases' logits and
+     tokens, kept on the host; serve_mesh_whisper and serve_mesh_vision
+     serve serve_whisper's and serve_vision's cells cut to
+     `MESH_LAYERS` + `MESH_LAYERS` layers and to train_vision's one
+     group of 3, each beside a mesh-free twin at that depth;
   4. report: step times, image bytes, write/restore seconds, peak device
      memory, and one JSON line of the kernels with their launches on the
      main path.  The counts are set to 0 just before each main-path
@@ -81,8 +103,8 @@ each fatal on failure:
      own processes; each phase must launch the kernels of its path (2,
      cli: checksum, XOR; 3: checksum, quantize, dequantize; train_mesh,
      train_mesh_hybrid, train_mesh_rwkv, train_mesh_whisper: all four;
-     train_mesh_moe, train_mesh_vision: checksum; serving:
-     checksum, XOR; world_pipeline and world_cross: XOR; quickstart,
+     train_mesh_moe, train_mesh_vision: checksum; serving, on a mesh
+     too: checksum, XOR; world_pipeline and world_cross: XOR; quickstart,
      preempt: checksum; train_moe, train_hybrid, train_rwkv,
      train_whisper, train_vision: all four), and `launches` is their
      sum.  The peak device memory is reset before each phase and printed
@@ -169,8 +191,8 @@ each fatal on failure:
      (526,542,784 params stored; heads padded to 48 over 6), B 4 x S 4096
      (see `TRAIN_4K_BATCH`; four times hymba's SWA window, so the
      sliding-window path); its losses must repeat bit for bit.
-     train_rwkv: the same run for rwkv6-3b at full width cut to 8 of 32
-     layers (1,072,667,136 params stored, heads padded 40 -> 48), B 4 x S
+     train_rwkv: the same run for rwkv6-3b at full width cut to 4 of 32
+     layers (704,107,008 params stored, heads padded 40 -> 48), B 4 x S
      4096 as train_hybrid.  train_whisper: the same run for
      whisper-large-v3 at full width cut to 8 of 32 layers in both stacks
      (699,077,120 params stored), B 4 x S 4096 decoder tokens, 1500
@@ -1225,6 +1247,9 @@ def phase_serve(cfg, rc, batch: int, root: str, report: dict):
     mgr = CheckpointManager(d, delta_keys=("decode",), device=dev)
     logical = {"decode": decode_state_logical(cfg)}
     tok = _greedy(logits)
+    # held on the host for the serve mesh phase: the prefill's logits
+    # and token, then each step's
+    report["host_logits"], report["host_tokens"] = [logits.cpu()], [tok.cpu()]
     toks, outs, step_s, saved = [], [], [], {}
     for i in range(SERVE_STEPS):
         t0 = time.monotonic()
@@ -1239,6 +1264,8 @@ def phase_serve(cfg, rc, batch: int, root: str, report: dict):
             saved[i] = state
     report["decode_step_s"] = step_s
     report["writes"] = list(mgr.stats)
+    report["host_logits"] += [o.cpu() for o in outs]
+    report["host_tokens"] += [t.cpu() for t in toks]
     if not all(torch.isfinite(o).all() for o in outs):
         raise AssertionError("decode logits are not finite")
     with open(os.path.join(mgr.step_dir(SNAP_DELTA), "manifest.json")) as f:
@@ -1322,6 +1349,223 @@ def report_serve(name: str, cfg, rc, batch: int, r: dict, card: str):
     log(f"{name}: decode state by leaf {r['state_bytes']} bytes, "
         f"{sum(r['state_bytes'].values())} in all; max_memory_allocated "
         f"{r['peak']} bytes ({r['peak'] / 2**30:.2f} GiB) [{card}]")
+
+
+def _serve_loop(prefill_step, serve_step, params, inputs, place_tok=None,
+                on_token=None):
+    """Prefill and `SERVE_STEPS` greedy decode steps: (the prefill's (B,
+    V) logits then each step's (B, 1, V), gathered and on the host; the
+    prefill's greedy token then each step's, (B, 1) on the card; the
+    prefill's and each step's seconds).  `place_tok` places a token for
+    the step; `on_token(i, state)` runs after step i."""
+    import torch
+
+    full = lambda x: x.full_tensor() if hasattr(x, "full_tensor") else x
+    t0 = time.monotonic()
+    logits, state = prefill_step(params, inputs)
+    logits = full(logits)
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    outs, toks, step_s = [logits.cpu()], [_greedy(logits)], []
+    for i in range(SERVE_STEPS):
+        t0 = time.monotonic()
+        tok = toks[-1] if place_tok is None else place_tok(toks[-1])
+        logits, state = serve_step(params, state, tok)
+        logits = full(logits)
+        toks.append(_greedy(logits[:, -1]))
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+        outs.append(logits.cpu())
+        if on_token is not None:
+            on_token(i, state)
+    return outs, toks, prefill_s, step_s
+
+
+def _not_placed(tree, specs, mesh):
+    """The leaves of `tree` that are not DTensors placed by `specs`."""
+    from repro_torch.core.checkpoint import _flatten
+    from repro_torch.sharding.rules import placements
+
+    spec = _flatten(specs)
+    return [p for p, x in _flatten(tree).items()
+            if not hasattr(x, "placements") or tuple(x.placements)
+            != placements(spec[p], mesh, x.shape)]
+
+
+def _place_(tree, specs, mesh) -> None:
+    """Each leaf of the dict tree replaced, in place, by its DTensor
+    placed by `specs` (a leaf's memory can go as soon as it is placed)."""
+    from repro_torch.sharding.rules import place
+
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _place_(v, specs[k], mesh)
+        else:
+            tree[k] = place(v, specs[k], mesh)
+
+
+def phase_serve_mesh(cfg, rc, batch: int, root: str, report: dict,
+                     label: str, want=None):
+    """The serving path on the (1 x 1) mesh of `nccl_mesh` with
+    `kv_time_shard` (the cache's time axis over "model", as the
+    reference's serving cells shard it): `make_serve_steps(cfg, rc,
+    rules)` with params re-initialised from `phase_serve`'s seed and
+    placed by `train_state_specs(...)["params"]`, the prompts by
+    `batch_specs`, each token by ("batch", None); every param and
+    decode-state leaf a DTensor placed by its spec (the decode state by
+    `decode_state_specs`, after the prefill and each step).  Prefill and
+    `SERVE_STEPS` greedy tokens are held to `want`, the mesh-free run's
+    (host logits, host tokens) from the same seed (`phase_serve`'s
+    `host_logits`/`host_tokens`), or, with `want` None, to a mesh-free
+    twin run first here: tokens equal; logits bit-equal, or else within
+    5e-3 of their norm at every step, the largest printed.  Images at
+    tokens `SNAP_FULL` (full) and `SNAP_DELTA` (XOR delta): the delta
+    restored onto the mesh decodes the next tokens again bit for bit,
+    and restored without a mesh equals the gathered live state."""
+    import torch
+
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.models.transformer import (decode_state_logical,
+                                                init_params)
+    from repro_torch.sharding.rules import ShardingRules, place
+    from repro_torch.training.step import (batch_specs, decode_state_specs,
+                                           make_serve_steps,
+                                           train_state_specs)
+
+    dev = torch.device("cuda")
+    rc = dataclasses.replace(rc, kv_time_shard=True)
+    S = rc.shape.seq_len
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params, _ = init_params(cfg, gen, dev)
+    inputs = _serve_inputs(cfg, S, batch, gen)
+    if want is None:
+        outs, toks, report["twin_prefill_s"], report["twin_step_s"] = (
+            _serve_loop(*make_serve_steps(cfg, rc), params, inputs))
+        want = (outs, [t.cpu() for t in toks])
+        del outs, toks
+    mesh = nccl_mesh()
+    rules = ShardingRules(mesh, moe_mode=rc.moe_mode, kv_time_shard=True)
+    p_specs = train_state_specs(cfg, rc, rules)["params"]
+    t0 = time.monotonic()
+    _place_(params, p_specs, mesh)
+    torch.cuda.synchronize()
+    report["place_s"] = time.monotonic() - t0
+    b_specs = batch_specs(cfg, rc.shape, rules)
+    inputs = {k: place(v, b_specs[k], mesh) for k, v in inputs.items()}
+    specs = decode_state_specs(cfg, rc, rules, rc.shape)
+    bad = _not_placed(params, p_specs, mesh)
+    if bad:
+        raise AssertionError(f"{label}: params not placed by their specs: "
+                             f"{bad[:5]}")
+    prefill_step, serve_step = make_serve_steps(cfg, rc, rules)
+    tok_spec = rules.spec(("batch", None), (batch, 1))
+    place_tok = lambda t: place(t, tok_spec, mesh)
+
+    def placed(state, when):
+        bad = _not_placed(state, specs, mesh)
+        if bad:
+            raise AssertionError(f"{label}: decode state {when} not placed "
+                                 f"by decode_state_specs: {bad[:5]}")
+
+    d = os.path.join(root, label)
+    mgr = CheckpointManager(d, delta_keys=("decode",), device=dev)
+    logical = {"decode": decode_state_logical(cfg)}
+    live = {}
+
+    def on_token(i, state):
+        placed(state, f"after step {i}")
+        if i in (SNAP_FULL, SNAP_DELTA):
+            mgr.save(i, {"decode": state}, logical)
+            live[i] = state
+
+    def prefill_placed(params, inputs):
+        logits, state = prefill_step(params, inputs)
+        placed(state, "after the prefill")
+        return logits, state
+
+    outs, toks, report["prefill_s"], report["decode_step_s"] = _serve_loop(
+        prefill_placed, serve_step, params, inputs, place_tok, on_token)
+    report["writes"] = list(mgr.stats)
+    host_toks = [t.cpu() for t in toks]
+    if not all(torch.equal(a, b) for a, b in zip(host_toks, want[1])):
+        raise AssertionError(f"{label}: tokens differ from the mesh-free "
+                             f"run's")
+    rel = [_rel(a, b) for a, b in zip(outs, want[0])]
+    report["vs_nomesh"] = (all(torch.equal(a, b)
+                               for a, b in zip(outs, want[0])), max(rel))
+    if not report["vs_nomesh"][0] and max(rel) > 5e-3:
+        raise AssertionError(f"{label}: logits against the mesh-free run "
+                             f"{rel}: beyond 5e-3")
+
+    t0 = time.monotonic()
+    back, _ = CheckpointManager(d, device=dev).restore(
+        SNAP_DELTA, mesh=mesh, specs={"decode": specs})
+    torch.cuda.synchronize()
+    report["restore_s"] = time.monotonic() - t0
+    state = back["decode"]
+    placed(state, "restored onto the mesh")
+    fed, made = toks[SNAP_DELTA + 1:SERVE_STEPS], outs[SNAP_DELTA + 2:]
+    for i, (tok, out) in enumerate(zip(fed, made)):
+        logits, state = serve_step(params, state, place_tok(tok))
+        if not torch.equal(logits.full_tensor().cpu(), out):
+            raise AssertionError(f"{label}: continuation after the restore "
+                                 f"onto the mesh differs at token "
+                                 f"{SNAP_DELTA + 2 + i}")
+    del back, state
+    t0 = time.monotonic()
+    flat, _ = CheckpointManager(d, device=dev).restore(SNAP_DELTA)
+    torch.cuda.synchronize()
+    report["restore_nomesh_s"] = time.monotonic() - t0
+    _equal_to_mesh_state(flat, {"decode": live[SNAP_DELTA]},
+                         f"{label}: the token-{SNAP_DELTA} image restored "
+                         f"without a mesh")
+    report["state_bytes"] = sum(x.numel() * x.element_size()
+                                for x in flat["decode"]["layers"].values())
+    log(f"{label}: (1 x 1) NCCL mesh, kv_time_shard, every param and "
+        f"decode-state leaf a DTensor placed by its spec; {len(toks)} "
+        f"tokens equal the mesh-free run's, logits "
+        f"{'bit-equal' if report['vs_nomesh'][0] else 'NOT bit-equal'} "
+        f"(largest norm-relative difference {report['vs_nomesh'][1]:.3e}); "
+        f"the token-{SNAP_DELTA} XOR-delta image restored onto the mesh "
+        f"continues bit for bit, restored without a mesh equals the "
+        f"gathered state")
+    del flat, live, params, inputs, outs
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def _served(r: dict):
+    """(host logits, host tokens) of a serve phase's report, taken out of
+    it."""
+    return r.pop("host_logits"), r.pop("host_tokens")
+
+
+def report_serve_mesh(label: str, cfg, rc, batch: int, r: dict, free: dict,
+                      peak: int, wall: float, card: str):
+    """`free`: the mesh-free serve phase's report (None: the twin's)."""
+    med = lambda xs: sorted(xs)[len(xs) // 2] * 1e3
+    if free is None:
+        f_prefill, f_steps = r["twin_prefill_s"], r["twin_step_s"]
+    else:
+        f_prefill, f_steps = free["prefill_s"], free["decode_step_s"]
+    log(f"{label} ((1 x 1) NCCL mesh, kv_time_shard): {cfg.arch_id} at "
+        f"full width, {_depth(cfg)}, B={batch} prompts of "
+        f"{rc.shape.seq_len}; params placed in {r['place_s']:.4f} s; "
+        f"prefill_s {r['prefill_s']:.4f} (mesh-free {f_prefill:.4f}), "
+        f"decode ms/token median {med(r['decode_step_s']):.3f} (mesh-free "
+        f"{med(f_steps):.3f}; all: "
+        f"{[round(x * 1e3, 3) for x in r['decode_step_s']]}) [{card}]")
+    for w in r["writes"]:
+        log(f"{label}: decode-state image token {w['step']}: {w['bytes']} "
+            f"bytes, snapshot_s {w['snapshot_s']}, write_s {w['write_s']} "
+            f"[{card}]")
+    log(f"{label}: restore_s onto the mesh {r['restore_s']:.4f}, without a "
+        f"mesh {r['restore_nomesh_s']:.4f}; decode state "
+        f"{r['state_bytes']} bytes; against the mesh-free run "
+        f"{'bit-equal' if r['vs_nomesh'][0] else 'largest norm-relative difference %.3e' % r['vs_nomesh'][1]}"
+        f"; phase {wall:.2f} s; max_memory_allocated {peak} bytes "
+        f"({peak / 2**30:.2f} GiB) [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1641,12 +1885,15 @@ TRAIN_4K_BATCH, TRAIN_4K_SEQ = 4, 4096
 # shrink with the depth.  At 16 and 12 + 12 layers hymba's and whisper's
 # took 85.2 and 93.2 s of a 1149.6 s smoke on a slow host (an H100 80GB
 # HBM3 at 700 W, whose host ran the other phases 14% slower than the
-# fastest seen), past the smoke's 1,120 s budget.
-HYBRID_LAYERS, RWKV_LAYERS, WHISPER_LAYERS = 8, 8, 8
+# fastest seen), past the smoke's 1,120 s budget.  rwkv's 8 layers went
+# to 4 to pay for the six serve mesh phases (train_rwkv took 86.2 s at
+# 8 layers on the 1098.9 s run's host).
+HYBRID_LAYERS, RWKV_LAYERS, WHISPER_LAYERS = 8, 4, 8
 # the depth of hymba-1.5b, rwkv6-3b and whisper-large-v3 (both stacks)
 # on the (1 x 1) mesh, at full width, for the smoke's time: each phase
 # also runs a mesh-free twin, and at 2 layers (images of 2.5, 6.2 and
-# 3.3 GB) each takes 16-30 s on an H100 80GB HBM3 at 700 W
+# 3.3 GB) each takes 16-30 s on an H100 80GB HBM3 at 700 W; serving
+# whisper on the mesh takes the same cut, beside its own twin
 MESH_LAYERS = 2
 # llama-3.2-vision-11b at full width cut to one group of 3 layers, 2 self
 # blocks and 1 cross block (`n_layers = cross_attn_every = 3`;
@@ -1924,6 +2171,14 @@ def main() -> int:
         whisper_cfg, n_layers=MESH_LAYERS, n_enc_layers=MESH_LAYERS)
     mesh_whisper_rc = dataclasses.replace(train_whisper_rc,
                                           model=mesh_whisper_cfg)
+    # serving on the (1 x 1) mesh: serve_whisper's and serve_vision's
+    # cells cut to `MESH_LAYERS` (both stacks) and to train_vision's one
+    # group of `VISION_LAYERS`, each beside a mesh-free twin at that
+    # depth; the other families serve their serve_* cells uncut
+    mesh_serve_whisper_rc = dataclasses.replace(whisper_rc,
+                                                model=mesh_whisper_cfg)
+    mesh_serve_vision_rc = dataclasses.replace(vision_rc,
+                                               model=train_vision_cfg)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     report: dict = {"serve_dense": {}, "serve_moe": {}, "serve_hybrid": {},
                     "serve_rwkv": {}, "serve_whisper": {}, "serve_vision": {},
@@ -1934,7 +2189,10 @@ def main() -> int:
                     "train_vision": {}, "train_mesh": {},
                     "train_mesh_moe": {},
                     "train_mesh_hybrid": {}, "train_mesh_rwkv": {},
-                    "train_mesh_whisper": {}, "train_mesh_vision": {}}
+                    "train_mesh_whisper": {}, "train_mesh_vision": {},
+                    "serve_mesh_dense": {}, "serve_mesh_moe": {},
+                    "serve_mesh_hybrid": {}, "serve_mesh_rwkv": {},
+                    "serve_mesh_whisper": {}, "serve_mesh_vision": {}}
     counters = {"checksum": (cops, "launches"), "xor_delta": (dops, "launches"),
                 "quantize_int8": (qops, "launches"),
                 "dequantize_int8": (qops, "dequantize_launches")}
@@ -2028,6 +2286,34 @@ def main() -> int:
             train_vision_cfg, train_vision_rc, root,
             report["train_mesh_vision"], "train_mesh_vision", 4, (2,),
             want=report["train_vision"]["losses"][:4]), ("checksum",)),
+        # serving on the mesh, last: dense, MoE, hybrid and rwkv held to
+        # their serve_* phases' logits and tokens (kept on the host),
+        # whisper and vision to their own twins; checksum and XOR on the
+        # gathered decode state
+        "serve_mesh_dense": (lambda: phase_serve_mesh(
+            cfg, dense_rc, 8, root, report["serve_mesh_dense"],
+            "serve_mesh_dense", want=_served(report["serve_dense"])),
+            ("checksum", "xor_delta")),
+        "serve_mesh_moe": (lambda: phase_serve_mesh(
+            moe_cfg, moe_rc, 4, root, report["serve_mesh_moe"],
+            "serve_mesh_moe", want=_served(report["serve_moe"])),
+            ("checksum", "xor_delta")),
+        "serve_mesh_hybrid": (lambda: phase_serve_mesh(
+            hybrid_cfg, hybrid_rc, 8, root, report["serve_mesh_hybrid"],
+            "serve_mesh_hybrid", want=_served(report["serve_hybrid"])),
+            ("checksum", "xor_delta")),
+        "serve_mesh_rwkv": (lambda: phase_serve_mesh(
+            rwkv_cfg, rwkv_rc, 8, root, report["serve_mesh_rwkv"],
+            "serve_mesh_rwkv", want=_served(report["serve_rwkv"])),
+            ("checksum", "xor_delta")),
+        "serve_mesh_whisper": (lambda: phase_serve_mesh(
+            mesh_whisper_cfg, mesh_serve_whisper_rc, 8, root,
+            report["serve_mesh_whisper"], "serve_mesh_whisper"),
+            ("checksum", "xor_delta")),
+        "serve_mesh_vision": (lambda: phase_serve_mesh(
+            train_vision_cfg, mesh_serve_vision_rc, 8, root,
+            report["serve_mesh_vision"], "serve_mesh_vision"),
+            ("checksum", "xor_delta")),
     }
     by_phase, peaks, wall = {}, {}, {}
     try:
@@ -2088,6 +2374,18 @@ def main() -> int:
                         train_vision_rc)):
         report_train_mesh_family(name, c, r, report[name], peaks[name],
                                  wall[name], card)
+    for name, c, r, b, free in (
+            ("serve_mesh_dense", cfg, dense_rc, 8, "serve_dense"),
+            ("serve_mesh_moe", moe_cfg, moe_rc, 4, "serve_moe"),
+            ("serve_mesh_hybrid", hybrid_cfg, hybrid_rc, 8, "serve_hybrid"),
+            ("serve_mesh_rwkv", rwkv_cfg, rwkv_rc, 8, "serve_rwkv"),
+            ("serve_mesh_whisper", mesh_whisper_cfg, mesh_serve_whisper_rc,
+             8, None),
+            ("serve_mesh_vision", train_vision_cfg, mesh_serve_vision_rc, 8,
+             None)):
+        report_serve_mesh(name, c, r, b, report[name],
+                          report[free] if free else None, peaks[name],
+                          wall[name], card)
     report_serve("serve_dense", cfg, dense_rc, 8, report["serve_dense"], card)
     report_serve("serve_moe", moe_cfg, moe_rc, 4, report["serve_moe"], card)
     report_serve("serve_hybrid", hybrid_cfg, hybrid_rc, 8,

@@ -76,17 +76,13 @@ def _placed_step(train_step, mesh, specs):
     """`train_step` whose new state's DTensor leaves are placed by their
     specs (the update may leave a param with its moments' ZeRO-1
     placement)."""
-    from repro_torch.sharding.rules import placements
+    from repro_torch.sharding.rules import place
     from repro_torch.tree import tree_map
-
-    def place(x, spec):
-        want = placements(spec, mesh, x.shape)
-        return x if tuple(x.placements) == want else x.redistribute(mesh,
-                                                                    want)
 
     def step(state, batch):
         new_state, metrics = train_step(state, batch)
-        return tree_map(place, new_state, specs), metrics
+        return tree_map(lambda x, s: place(x, s, mesh), new_state,
+                        specs), metrics
 
     return step
 

@@ -20,8 +20,9 @@ over (B, K) that reads its operands where they lie.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.models.layers import _dense_init, apply_rope, pad_front
+from repro_torch.models.layers import _dense_init, apply_rope, pad_dim
 from repro_torch.sharding.rules import on_local_shards
 
 NEG_INF = -1e9
@@ -271,7 +272,7 @@ def sliding_window_attention(q, k, v, *, window: int, chunk: int = 128):
     chunk = _fit_chunk(S, chunk)
     span = window + chunk
     qh, kh, vh = _heads_first(q, k, v)
-    kh, vh = (pad_front(x, window, 2) for x in (kh, vh))
+    kh, vh = (pad_dim(x, window, 2) for x in (kh, vh))
     outs = []
     for start in range(0, S, chunk):
         keep = _swa_mask(start, window, chunk, span, q.device)
@@ -291,36 +292,129 @@ def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
 
     `pos` (an int) is the position of the new token, already written to
     the cache.  Keys in the cache are stored post-RoPE.  Ring slot s
-    holds position pos - ((pos - s) mod T), with a non-negative mod."""
+    holds position pos - ((pos - s) mod T), with a non-negative mod.  On
+    a mesh (DTensor caches) it runs on each rank's local shards
+    (`_decode_attention_on_mesh`)."""
+    if hasattr(k_cache, "device_mesh"):
+        return _decode_attention_on_mesh(q, k_cache, v_cache, pos, window)
+    return _decode_attend(q, k_cache, v_cache, pos, window, k_cache.shape[1])
+
+
+def _decode_attend(q, k_cache, v_cache, pos: int, window: int, T: int,
+                   start: int = 0, time_groups=()):
+    """`decode_attention` on plain tensors whose cache holds slots
+    start..start+t of a capacity of T.  With `time_groups` (the process
+    groups of the mesh dims that split the cache's time dim) the softmax
+    runs over every rank's slots: the row max and the exponentials' sum
+    are all-reduced over them, each rank weighs its own values with the
+    probabilities rounded to the compute dtype, and the f32 products are
+    summed over them."""
     B, _, H, hd = q.shape
-    K, T = k_cache.shape[2], k_cache.shape[1]
+    K = k_cache.shape[2]
     qg = _group(q * _scale(q), K)[:, 0]                     # (B,K,G,hd)
     s = torch.einsum("bkgh,btkh->bkgt", qg.to(torch.float32),
                      k_cache.to(torch.float32))
-    slots = torch.arange(T, device=q.device)
+    slots = torch.arange(start, start + k_cache.shape[1], device=q.device)
     if window:
         slot_pos = pos - torch.remainder(pos - slots, T)
         valid = (slot_pos >= 0) & (slot_pos > pos - window)
     else:
         valid = slots <= pos
     s = s.masked_fill(~valid[None, None, None, :], NEG_INF)
-    w = torch.softmax(s, dim=-1).to(q.dtype)
+    if time_groups:
+        m = s.amax(dim=-1, keepdim=True)
+        for g in time_groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        e = torch.exp(s - m)
+        total = e.sum(dim=-1, keepdim=True)
+        for g in time_groups:
+            dist.all_reduce(total, group=g)
+        w = (e / total).to(q.dtype)
+    else:
+        w = torch.softmax(s, dim=-1).to(q.dtype)
     o = torch.einsum("bkgt,btkh->bkgh", w.to(torch.float32),
-                     v_cache.to(torch.float32)).to(q.dtype)
-    return o.reshape(B, 1, H, hd)
+                     v_cache.to(torch.float32))
+    for g in time_groups:
+        dist.all_reduce(o, group=g)
+    return o.to(q.dtype).reshape(B, 1, H, hd)
+
+
+def _decode_attention_on_mesh(q, k_cache, v_cache, pos: int, window: int):
+    """`decode_attention` of DTensors on local shards: q is placed as the
+    caches (both alike, by the decode state's specs) on their batch and
+    KV-head dims (whole groups of query heads
+    follow their KV head), and each rank attends over its own cache
+    slots, the softmax and the value sum reduced over the ranks that
+    split the time dim (`_decode_attend`).  DTensor's own einsum here
+    merges the batch and head dims in a view, which the card's torch
+    (2.11) cannot plan where both are sharded (ROADMAP.md section C,
+    "DTensor ops on local shards")."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = k_cache.device_mesh
+    cache_pl = tuple(k_cache.placements)
+    q_pl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate()
+                 for p in cache_pl)
+    start, _ = _time_range(k_cache)
+    groups = [mesh.get_group(i) for i, p in enumerate(cache_pl)
+              if p.is_shard(1) and mesh.size(i) > 1]
+    o = _decode_attend(q.redistribute(mesh, q_pl).to_local(),
+                       k_cache.to_local(), v_cache.to_local(), pos, window,
+                       k_cache.shape[1], start, groups)
+    return DTensor.from_local(o, mesh, q_pl, run_check=False)
+
+
+def _time_range(cache):
+    """(first slot, slot count) of this rank's local shard of a DTensor
+    cache (B,T,K,hd): `torch.chunk`'s split of each mesh dim that shards
+    the time dim, in mesh-dim order."""
+    mesh = cache.device_mesh
+    start, length = 0, cache.shape[1]
+    for i, (p, c) in enumerate(zip(cache.placements, mesh.get_coordinate())):
+        if p.is_shard(1):
+            step = -(-length // mesh.size(i))
+            start += c * step
+            length = max(0, min(step, length - c * step))
+    return start, length
 
 
 def write_slot_(k_cache, v_cache, k_new, v_new, pos: int,
                 window: int = 0) -> None:
     """In place: one token's (already-RoPE'd) K/V into slot `pos` (ring
     slot pos mod T iff SWA; else pos, which must be below the capacity
-    T).  A slice at a host integer: deterministic on CUDA."""
+    T).  A slice at a host integer: deterministic on CUDA.  A DTensor
+    cache whose time dim is sharded is written on local shards
+    (`_write_local_slot_`)."""
     T = k_cache.shape[1]
     slot = pos % T if window else pos
     if not 0 <= slot < T:
         raise ValueError(f"KV cache full: position {pos}, capacity {T}")
-    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        if hasattr(cache, "device_mesh") and any(
+                p.is_shard(1) for p in cache.placements):
+            _write_local_slot_(cache, new, slot)
+        else:
+            cache[:, slot] = new[:, 0].to(cache.dtype)
+
+
+def _write_local_slot_(cache, new, slot: int) -> None:
+    """`cache[:, slot] = new[:, 0]` for a DTensor cache (B,T,K,hd) whose
+    time dim is sharded, written into the local shard of the ranks that
+    hold the slot, at its local index; `new` (B,1,K,hd) is first placed
+    as the cache on its batch and head dims (a collective of every
+    rank).  DTensor's own slice write there lands elsewhere and raises
+    nothing (ROADMAP.md section C, "DTensor ops on local shards")."""
+    from torch.distributed.tensor import Replicate
+
+    new = new.redistribute(cache.device_mesh, [
+        Replicate() if p.is_shard(1) else p for p in cache.placements])
+    start, length = _time_range(cache)
+    local = cache.to_local()
+    if local.shape[1] != length:
+        raise AssertionError(f"local time shard of {local.shape[1]}, "
+                             f"expected {length}")
+    if start <= slot < start + length:
+        local[:, slot - start] = new.to_local()[:, 0].to(local.dtype)
 
 
 def cache_write(k_cache, v_cache, k_new, v_new, pos, window: int = 0):

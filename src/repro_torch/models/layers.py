@@ -46,14 +46,15 @@ def head_rms_norm(x, eps: float = 1e-5):
     return (x * torch.rsqrt(var + eps)).to(dt)
 
 
-def pad_front(x, n: int, dim: int):
-    """`x` with `n` zeros in front along `dim`: `F.pad`'s values, built
-    by a concatenation, because on a DTensor `F.pad` of the card's torch
-    (2.11) gives a result whose shape misses the pad."""
+def pad_dim(x, n: int, dim: int, *, end: bool = False):
+    """`x` with `n` zeros along `dim`, in front or, with `end`, after it:
+    `F.pad`'s values, built by a concatenation, because on a DTensor
+    `F.pad` of the card's torch (2.11) gives a result whose shape misses
+    the pad."""
     shape = list(x.shape)
     shape[dim] = n
     zeros = torch.zeros_like(x.narrow(dim, 0, 1)).expand(shape)
-    return torch.cat([zeros, x], dim=dim)
+    return torch.cat([x, zeros] if end else [zeros, x], dim=dim)
 
 
 # --------------------------------------------------------------------------

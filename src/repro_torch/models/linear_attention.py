@@ -133,8 +133,13 @@ def _on_local_shards(q, k, v, lw, *, mode, u, state0, chunk):
 
 def linear_attention_step(q, k, v, lw, *, mode: str, u=None, state=None):
     """Single-token recurrence for decode. q,k: (B,H,dk); v: (B,H,dv);
-    lw: (B,H,dk).  Returns (out (B,H,dv), new_state (B,H,dk,dv) f32)."""
+    lw: (B,H,dk).  Returns (out (B,H,dv), new_state (B,H,dk,dv) f32).
+    On a mesh (DTensor inputs) it runs on local shards
+    (`_step_on_local_shards`)."""
     _check_mode(mode)
+    if hasattr(q, "device_mesh"):
+        return _step_on_local_shards(q, k, v, lw, mode=mode, u=u,
+                                     state=state)
     B, H, dk = q.shape
     dv = v.shape[-1]
     f32 = torch.float32
@@ -152,3 +157,26 @@ def linear_attention_step(q, k, v, lw, *, mode: str, u=None, state=None):
         out = torch.einsum("bhk,bhkv->bhv", qf, read)
         state = state * decay + kv
     return out.to(q.dtype), state
+
+
+def _step_on_local_shards(q, k, v, lw, *, mode, u, state):
+    """`linear_attention_step` of DTensors on each rank's own (B, H)
+    block, placed as the state is on its batch and head dims
+    (dims 0 and 1), `u` alike on its head dim: the recurrence is
+    independent across batch rows and heads.  DTensor's own einsums
+    here merge the batch and head dims in a view, which the card's
+    torch (2.11) cannot plan where both are sharded (ROADMAP.md section
+    C, "DTensor ops on local shards")."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    R = Replicate()
+    pl = tuple(p if type(p) is Shard and p.dim in (0, 1) else R
+               for p in state.placements)
+    u_pl = tuple(Shard(0) if p == Shard(1) else R for p in pl)
+
+    def step(q, k, v, lw, u, state):
+        return linear_attention_step(q, k, v, lw, mode=mode, u=u,
+                                     state=state)
+
+    return on_local_shards(step, (q, k, v, lw, u, state),
+                           (pl, pl, pl, pl, u_pl, pl), (pl, pl))

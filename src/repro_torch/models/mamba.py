@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _dense_init, pad_front
+from repro_torch.models.layers import _dense_init, pad_dim
 from repro_torch.models.linear_attention import (
     chunked_linear_attention,
     linear_attention_step,
@@ -72,7 +72,7 @@ def _causal_conv(xi, w, b):
     """Depthwise causal conv width 4 via shifted adds. xi: (B,S,d_in)."""
     out = xi * w[-1]
     for i in range(1, CONV_W):
-        shifted = pad_front(xi, i, 1)[:, :-i]
+        shifted = pad_dim(xi, i, 1)[:, :-i]
         out = out + shifted * w[CONV_W - 1 - i]
     return out + b
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _dense_init, head_rms_norm, pad_front
+from repro_torch.models.layers import _dense_init, head_rms_norm, pad_dim
 from repro_torch.models.linear_attention import (
     chunked_linear_attention,
     linear_attention_step,
@@ -92,7 +92,7 @@ def _lerp(x, xprev, mu):
 
 def _shifted(x):
     """The previous position's input along S, zeros before the first."""
-    return pad_front(x, 1, 1)[:, :-1]
+    return pad_dim(x, 1, 1)[:, :-1]
 
 
 def _time_mix_projections(p, x, xprev):

@@ -633,7 +633,7 @@ def prefill(params, cfg: ModelConfig, rc: RunConfig, rules, batch):
         # (G, per-1, B, T, K, hd)); the cross K/V,
         # SSM state, conv tail and rwkv states are fixed-size
         for key in ("k", "v"):
-            layers[key] = torch.nn.functional.pad(
-                layers[key], (0, 0, 0, 0, 0, rc.decode_margin))
+            layers[key] = L.pad_dim(layers[key], rc.decode_margin,
+                                    layers[key].ndim - 3, end=True)
     pos = torch.tensor(S, dtype=torch.int32, device=x.device)
     return logits, {"pos": pos, "layers": layers}

@@ -174,7 +174,9 @@ class ShardingRules:
             axes = phys if isinstance(phys, tuple) else (phys,)
             if any(a in used for a in axes):
                 # each mesh axis may shard one dim; first mapping wins
-                # (e.g. kv_heads takes 'model' before cache_time can)
+                # (e.g. a decode cache's cache_time, which comes before
+                # its kv_heads, takes 'model' under kv_time_shard and
+                # leaves the heads whole)
                 out.append(None)
                 continue
             if shape is not None:
@@ -193,6 +195,18 @@ class ShardingRules:
               shape: Optional[Sequence[int]] = None) -> NamedSharding:
         return NamedSharding(self.mesh, self.spec(logical, shape),
                              None if shape is None else tuple(shape))
+
+
+def place(x, spec, mesh):
+    """`x` as a DTensor placed by `spec` on `mesh`: a DTensor is
+    redistributed where its placements differ, a plain tensor (the same
+    on every rank) is cut to this rank's shard with no collective."""
+    want = placements(spec, mesh, x.shape)
+    if not hasattr(x, "device_mesh"):
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(x, mesh, want, src_data_rank=None)
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
 
 
 def constrain(x, rules: Optional[ShardingRules], logical):

@@ -9,7 +9,8 @@ and a decode state is upper-half state an image can hold as it is.
 PyTorch runs eagerly: there is no jit.  On a mesh (`rules` set) the
 state's leaves are DTensors placed by `train_state_specs`, and the
 train step runs with plain tensors made inside the model taken as
-replicated.
+replicated; so do the serve steps, whose decode state is placed by
+`decode_state_specs`.
 """
 from __future__ import annotations
 
@@ -134,7 +135,21 @@ def make_train_step(cfg: ModelConfig, rc: RunConfig, rules=None):
 def make_serve_steps(cfg: ModelConfig, rc: RunConfig, rules=None):
     """(prefill_step(params, batch) -> (logits, state),
     serve_step(params, state, token) -> (logits, state)), both without
-    autograd."""
+    autograd.
+
+    On a mesh (`rules` set) the params come placed by
+    `train_state_specs(cfg, rc, rules)["params"]`, the batch by
+    `batch_specs` and the token by ("batch", None), as the reference's
+    `run_cell` places them; both steps run with the plain tensors made
+    inside the model (positions, masks, slots) taken as replicated, and
+    return their decode state placed by `decode_state_specs(cfg, rc,
+    rules, rc.shape)`, the reference's `out_shardings` (the logits stay
+    as the ops leave them).  Those specs are computed at the cache
+    length of `init_decode_state`, S (or the SWA window), while a
+    full-attention prefill's caches hold S + `decode_margin`: a dim
+    that S divides over its mesh axes but S + margin does not is split
+    unevenly, as `torch.chunk` splits it (the tests and the smoke pick
+    S so that both divide)."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -144,4 +159,20 @@ def make_serve_steps(cfg: ModelConfig, rc: RunConfig, rules=None):
     def serve_step(params, state, token):
         return T.decode_step(params, cfg, rc, rules, state, token)
 
-    return prefill_step, serve_step
+    if rules is None:
+        return prefill_step, serve_step
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.sharding.rules import place
+
+    specs = decode_state_specs(cfg, rc, rules, rc.shape)
+
+    def placed(step):
+        def run(*args):
+            with implicit_replication():
+                logits, state = step(*args)
+            return logits, tree_map(lambda x, s: place(x, s, rules.mesh),
+                                    state, specs)
+        return run
+
+    return placed(prefill_step), placed(serve_step)

@@ -12,6 +12,7 @@ against the reference themselves.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -443,24 +444,347 @@ def la_parts(rank: int, d: str, arg: str, arch: str):
             "grad_rel": rel}
 
 
+# the serving cell of a reduced arch: SERVE_BATCH prompts, SERVE_STEPS
+# greedy tokens, decode-state images at tokens SNAP_FULL and SNAP_DELTA.
+# A full-attention prompt of SERVE_S tokens leaves caches of SERVE_S +
+# decode_margin (128) = 240 slots, so the decode's positions 112-127
+# cross the time shards' boundary at 120 on a "model" axis of 2; an SWA
+# prompt is two windows (the prefill takes the SWA path, the ring wraps)
+SERVE_BATCH, SERVE_S, SERVE_STEPS, SNAP_FULL, SNAP_DELTA = 8, 112, 16, 6, 10
+# (name, mesh shape, kv_time_shard, compute dtype) of the serving
+# meshes, in the order they run: the first writes the decode-state
+# images, RESTORE_ON restores one.  Float32 compute, but for a last run
+# in bfloat16 on (4 x 1): where "model" splits heads, DTensor sums the
+# partial products of each head-summing einsum in the compute dtype,
+# and in bfloat16 those roundings move reduced qwen2-0.5b's prefill
+# logits by 1.7% of their norm (float32: 1e-6), enough to change greedy
+# tokens; the reference reduces in its compute dtype too, and holds
+# meshes to each other only on losses
+SERVE_MESHES = (("2x2_time", (2, 2), True, "float32"),
+                ("2x2_heads", (2, 2), False, "float32"),
+                ("4x1", (4, 1), True, "float32"),
+                ("4x1_bf16", (4, 1), True, "bfloat16"))
+RESTORE_ON = "4x1"
+# of a run's tokens and logits (the prefill's first): those a restored
+# image at token SNAP_DELTA is fed, and those it must make
+FED = slice(SNAP_DELTA + 1, SERVE_STEPS)
+MADE = slice(SNAP_DELTA + 2, SERVE_STEPS + 1)
+
+
+def serve_config(arch: str, dtype: str = "float32"):
+    """(cfg, rc) of `arch`'s serving cell (`reduced`, `SERVE_BATCH`
+    prompts, compute in `dtype`; `kv_time_shard` on, the reference's
+    production choice for serving)."""
+    from repro_torch.configs.base import ShapeConfig
+
+    cfg, rc = reduced(arch)
+    S = 2 * cfg.sliding_window if cfg.sliding_window else SERVE_S
+    return cfg, dataclasses.replace(
+        rc, shape=ShapeConfig("serve", S, SERVE_BATCH, "prefill"),
+        kv_time_shard=True, dtype=dtype)
+
+
+def serve_inputs(cfg, rc):
+    """(params from torch seed 0, the prefill batch: tokens, and stub
+    frames or patches, from numpy seed 7), both plain CPU tensors."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator().manual_seed(0)
+    params, _ = T.init_params(cfg, gen, "cpu")
+    rng = np.random.RandomState(7)
+    B, S = rc.shape.global_batch, rc.shape.seq_len
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (B, S)).astype(
+        np.int32)}
+    if cfg.enc_dec:
+        batch["frames"] = rng.randn(B, cfg.enc_positions,
+                                    cfg.d_model).astype(np.float32)
+    if cfg.cross_attn_every:
+        batch["patches"] = rng.randn(B, cfg.vision_tokens,
+                                     cfg.d_model).astype(np.float32)
+    return params, {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _full(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _greedy_tok(logits):
+    """(B, 1) int32 argmax of gathered (B, V) logits."""
+    import torch
+
+    return torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+
+
+class _Server:
+    """`make_serve_steps` of a cell on `mesh` (None: without one), with
+    the params, batch and tokens placed as the reference's `run_cell`
+    places them."""
+
+    def __init__(self, cfg, rc, params, mesh=None):
+        from repro_torch.sharding.rules import ShardingRules
+        from repro_torch.training.step import (decode_state_specs,
+                                               make_serve_steps,
+                                               train_state_specs)
+        from repro_torch.tree import tree_map
+
+        self.cfg, self.rc, self.mesh = cfg, rc, mesh
+        self.rules = None if mesh is None else ShardingRules(
+            mesh, moe_mode=rc.moe_mode, kv_time_shard=rc.kv_time_shard)
+        self.prefill, self.serve = make_serve_steps(cfg, rc, self.rules)
+        self.params, self.specs = params, None
+        if mesh is not None:
+            self.specs = decode_state_specs(cfg, rc, self.rules, rc.shape)
+            self.params = tree_map(
+                self._place, params,
+                train_state_specs(cfg, rc, self.rules)["params"])
+
+    def _place(self, x, spec):
+        from repro_torch.sharding.rules import place
+
+        return x if self.mesh is None else place(x, spec, self.mesh)
+
+    def start(self, batch):
+        """Prefill: (gathered (B, V) logits, decode state)."""
+        from repro_torch.training.step import batch_specs
+
+        if self.mesh is not None:
+            specs = batch_specs(self.cfg, self.rc.shape, self.rules)
+            batch = {k: self._place(v, specs[k]) for k, v in batch.items()}
+        logits, state = self.prefill(self.params, batch)
+        return _full(logits), state
+
+    def step(self, state, tok):
+        """One decode step of the (B, 1) plain token: (gathered (B, V)
+        logits, new state)."""
+        if self.mesh is not None:
+            tok = self._place(tok, self.rules.spec(("batch", None),
+                                                   tuple(tok.shape)))
+        logits, state = self.serve(self.params, state, tok)
+        return _full(logits)[:, -1], state
+
+    def misplaced(self, state):
+        """The decode-state leaves that are not DTensors placed by
+        `decode_state_specs`, as "path: got != want"."""
+        from repro_torch.core.checkpoint import _flatten
+        from repro_torch.sharding.rules import placements
+
+        specs = _flatten(self.specs)
+        bad = []
+        for p, x in _flatten(state).items():
+            want = [str(q) for q in placements(specs[p], self.mesh,
+                                               x.shape)]
+            got = ([str(q) for q in x.placements]
+                   if hasattr(x, "placements") else None)
+            if got != want:
+                bad.append(f"{p}: {got} != {want}")
+        return bad
+
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _vs(logits, want):
+    """Each step's norm-relative difference of gathered logits from
+    `want`'s, and whether all are bit-equal."""
+    import torch
+
+    return {"rel": [_rel(a, b) for a, b in zip(logits, want)],
+            "equal": all(torch.equal(a, b) for a, b in zip(logits, want))}
+
+
+def _state_digests(state):
+    """{leaf path: sha256 of its gathered bytes} of a decode state."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.core.checkpoint import _flatten
+
+    return {p: hashlib.sha256(_full(x).reshape(-1).view(torch.uint8)
+                              .numpy().tobytes()).hexdigest()
+            for p, x in _flatten(state).items()}
+
+
+def _continue(server, state, toks):
+    """Decode `toks` (a list of (B, 1) tokens, teacher forced) from
+    `state`: the gathered logits of each step."""
+    out = []
+    for tok in toks:
+        logits, state = server.step(state, tok)
+        out.append(logits)
+    return out
+
+
+def serve_on_mesh(rank: int, d: str, arg: str, arch: str):
+    """`arch`'s serving cell (`serve_config`) without a mesh, then on
+    each of `SERVE_MESHES` (params, batch and tokens placed as the
+    reference's `run_cell` places them): prefill and `SERVE_STEPS`
+    greedy tokens, with each mesh's tokens, its gathered logits against
+    the mesh-free run's in its dtype (norm-relative, each step), and the
+    decode-state leaves not placed by `decode_state_specs` after the
+    prefill or any step.  The first mesh writes an image of {"decode":
+    state} at token `SNAP_FULL` (full) and `SNAP_DELTA` (XOR delta) in
+    `d`/img: restored onto that mesh it decodes tokens 11-15 again,
+    restored without a mesh it is held to the gathered live state, and
+    restored onto `RESTORE_ON` it decodes them there.  If `d`/ref holds
+    the reference's image of its mesh-free decode state at token
+    `SNAP_DELTA`, and `d`/ref_tokens.npy the tokens it fed next, that
+    image is restored onto the first mesh (digests verified) and fed
+    them; rank 0 saves the gathered logits to `d`/from_reference.npy."""
+    import torch
+
+    from repro_torch.core.checkpoint import CheckpointManager
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    logical = {"decode": T.decode_state_logical(reduced(arch)[0])}
+    img = os.path.join(d, "img")
+    inputs = {dt: serve_inputs(*serve_config(arch, dt))
+              for dt in ("float32", "bfloat16")}
+
+    def run(server, check=lambda st: None, on_token=lambda i, st: None):
+        logits, state = server.start(inputs[server.rc.dtype][1])
+        outs, toks = [logits], [_greedy_tok(logits)]
+        check(state)
+        for i in range(SERVE_STEPS):
+            logits, state = server.step(state, toks[-1])
+            outs.append(logits)
+            toks.append(_greedy_tok(logits))
+            check(state)
+            on_token(i, state)
+        return outs, toks
+
+    def restore(server, directory):
+        st, _ = CheckpointManager(directory, device="cpu").restore(
+            SNAP_DELTA, mesh=server.mesh, specs={"decode": server.specs})
+        return st["decode"]
+
+    free = {}
+    for dt, (params, _) in inputs.items():
+        cfg, rc = serve_config(arch, dt)
+        free[dt] = run(_Server(cfg, rc, params))
+    out, first = {}, None
+    mgr = CheckpointManager(img, delta_keys=("decode",), device="cpu")
+    for name, shape, time_shard, dt in SERVE_MESHES:
+        cfg, rc = serve_config(arch, dt)
+        server = _Server(cfg, dataclasses.replace(
+            rc, kv_time_shard=time_shard), inputs[dt][0], _mesh(shape))
+        bad, live = [], {}
+
+        def on_token(i, state):
+            if first is None and i in (SNAP_FULL, SNAP_DELTA):
+                mgr.save(i, {"decode": state}, logical)
+                live[i] = tree_map(_full, state)
+
+        outs, toks = run(server, lambda st: bad.extend(server.misplaced(st)),
+                         on_token)
+        res = out[name] = {
+            "tokens_equal": all(torch.equal(a, b)
+                                for a, b in zip(toks, free[dt][1])),
+            "vs_free": _vs(outs, free[dt][0]), "misplaced": bad[:20],
+            "n_misplaced": len(bad)}
+        if first is None:
+            first = (outs, toks)
+            res["image_bytes"] = [w["bytes"] for w in mgr.stats]
+            st = restore(server, img)
+            res["restored_misplaced"] = server.misplaced(st)
+            res["same_mesh"] = _vs(_continue(server, st, toks[FED]),
+                                   outs[MADE])
+            plain = CheckpointManager(img, device="cpu").restore(
+                SNAP_DELTA)[0]["decode"]
+            want = live[SNAP_DELTA]
+            res["no_mesh_equal"] = {"pos": bool(torch.equal(
+                plain["pos"], want["pos"]))} | {
+                k: bool(torch.equal(plain["layers"][k], c))
+                for k, c in want["layers"].items()}
+            if os.path.isdir(os.path.join(d, "ref")):
+                st = restore(server, os.path.join(d, "ref"))
+                res["from_reference"] = {
+                    "misplaced": server.misplaced(st),
+                    "digests": _state_digests(st)}
+                fed = [torch.from_numpy(t) for t in
+                       np.load(os.path.join(d, "ref_tokens.npy"))]
+                got = torch.stack(_continue(server, st, fed))
+                if rank == 0:
+                    np.save(os.path.join(d, "from_reference.npy"),
+                            got.numpy())
+        if name == RESTORE_ON:
+            st = restore(server, img)
+            got = _continue(server, st, first[1][FED])
+            res["restored_misplaced"] = server.misplaced(st)
+            res["from_first_image"] = _vs(got, first[0][MADE])
+            res["from_first_image"]["tokens_equal"] = all(
+                torch.equal(_greedy_tok(a), b)
+                for a, b in zip(got, first[1][MADE]))
+    return out
+
+
+def slot_write(rank: int, d: str, arg: str):
+    """`attention.write_slot_` into a layer of a (L, B, T, K, hd) cache
+    placed as `kv_time_shard` places it on a (2 x 2) mesh (batch over
+    "data", time over "model"), the new K/V placed as the projections
+    leave them (batch over "data", heads over "model"), against the plain
+    write on the same inputs: for every slot 0..T-1 of a full cache, and
+    for an SWA ring of capacity T whose positions T..2T+2 wrap past T
+    (slot pos mod T, crossing the shards' boundary)."""
+    import torch
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.models import attention as A
+
+    mesh = _mesh((2, 2))
+    gen = torch.Generator().manual_seed(4)
+    L, B, T, K, hd = 2, 4, 8, 2, 4
+    base = torch.randn(L, B, T, K, hd, generator=gen).to(torch.bfloat16)
+    out = {}
+    for window, positions in ((0, range(T)), (T, range(T, 2 * T + 3))):
+        equal = []
+        for pos in positions:
+            new = [torch.randn(B, 1, K, hd, generator=gen).to(torch.bfloat16)
+                   for _ in range(2)]
+            want = [base.clone(), base.clone()]
+            A.write_slot_(want[0][1], want[1][1], *new, pos, window)
+            got = [distribute_tensor(base, mesh, [Shard(1), Shard(2)])
+                   for _ in range(2)]
+            A.write_slot_(got[0][1], got[1][1], *(
+                distribute_tensor(x, mesh, [Shard(0), Shard(2)])
+                for x in new), pos, window)
+            equal.append(all(torch.equal(g.full_tensor(), w)
+                             for g, w in zip(got, want)))
+        out["ring" if window else "full"] = equal
+    return out
+
+
 SCENARIOS = {"train_and_restore": train_and_restore,
              "embed_on_mesh": embed_on_mesh,
              "moe_parts": moe_parts,
-             "la_parts": la_parts}
+             "la_parts": la_parts,
+             "serve_on_mesh": serve_on_mesh,
+             "slot_write": slot_write}
+# scenarios that take no arch: run once, before the arch loop
+ARCH_FREE = ("slot_write",)
 
 
 def _run(rank: int, d: str, scenarios: str, arg: str, archs: str):
     """`scenarios` ("a" or "a,b") each on `arg`'s meshes; with `archs`
     ("mixtral-8x7b:ep,...") each runs for each arch in `d`/<arch, ":"
-    as "-"> and the result is {"scenario@arch": result}."""
+    as "-"> and the result is {"scenario@arch": result}, but one of
+    `ARCH_FREE` runs once first, in `d`, as {"scenario": result}."""
     if not archs:
         return SCENARIOS[scenarios](rank, d, arg)
-    out = {}
+    names = scenarios.split(",")
+    out = {name: SCENARIOS[name](rank, d, arg) for name in names
+           if name in ARCH_FREE}
     for arch in archs.split(","):
         sub = os.path.join(d, arch.replace(":", "-"))
         os.makedirs(sub, exist_ok=True)
-        for name in scenarios.split(","):
-            out[f"{name}@{arch}"] = SCENARIOS[name](rank, sub, arg, arch)
+        for name in names:
+            if name not in ARCH_FREE:
+                out[f"{name}@{arch}"] = SCENARIOS[name](rank, sub, arg, arch)
     return out
 
 

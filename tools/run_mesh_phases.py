@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""`chip_smoke.py`'s encoder-decoder and vision mesh phases alone, on one
-GPU: a short call that compiles and checks them before the whole smoke.
+"""`chip_smoke.py`'s mesh phases alone, on one GPU: a short call that
+compiles and checks them before the whole smoke.
 
-    python3 tools/run_mesh_phases.py [whisper] [vision]
+    python3 tools/run_mesh_phases.py [whisper] [vision] [serve_dense]
+        [serve_moe] [serve_hybrid] [serve_rwkv] [serve_whisper]
+        [serve_vision]
 
-It builds the kernels, then runs `chip_smoke.phase_train_mesh_family`
-for each family named (both by default) at the smoke's cells, on the
-smoke's (1 x 1) NCCL mesh: whisper-large-v3 at full width cut to
-`MESH_LAYERS` in both stacks (3 steps beside a mesh-free twin, an image
-at step 2, the int8 image), and llama-3.2-vision-11b at train_vision's
-cell (4 steps, one full image at step 2).  The smoke holds vision to
-train_vision's losses; here, where train_vision does not run, it runs
-its own mesh-free twin of the same 4 steps.  Each phase prints the
-smoke's report lines, its wall seconds, its peak device memory and the
-kernels' launches, beside the card's name and power limit; the last
+It builds the kernels, then runs each phase named (whisper and vision by
+default) at the smoke's cells, on the smoke's (1 x 1) NCCL mesh.
+whisper and vision: `chip_smoke.phase_train_mesh_family` for
+whisper-large-v3 at full width cut to `MESH_LAYERS` in both stacks (3
+steps beside a mesh-free twin, an image at step 2, the int8 image), and
+llama-3.2-vision-11b at train_vision's cell (4 steps, one full image at
+step 2).  The smoke holds vision to train_vision's losses; here, where
+train_vision does not run, it runs its own mesh-free twin of the same 4
+steps.  serve_*: `chip_smoke.phase_serve_mesh` at the smoke's serve
+mesh cells, with `kv_time_shard`; serve_dense, serve_moe, serve_hybrid
+and serve_rwkv first run their mesh-free `phase_serve`, whose logits and
+tokens the mesh run is held to, as in the smoke; serve_whisper
+(whisper-large-v3 at `MESH_LAYERS` + `MESH_LAYERS`) and serve_vision
+(one group of `VISION_LAYERS`) run their own twins.  Each phase prints
+the smoke's report lines, its wall seconds, its peak device memory and
+the kernels' launches, beside the card's name and power limit; the last
 line is "run_mesh_phases: OK".
 """
 from __future__ import annotations
@@ -55,6 +63,28 @@ def main(argv) -> int:
     vision = dataclasses.replace(
         ARCHS["llama-3.2-vision-11b"], n_layers=smoke.VISION_LAYERS,
         cross_attn_every=smoke.VISION_LAYERS)
+    # the serve cells of `chip_smoke.main`: (cfg, rc, batch, mesh-free
+    # phase first?)
+    def serve(name, S):
+        return ShapeConfig(name, S, 8, "prefill")
+
+    moe = dataclasses.replace(ARCHS["mixtral-8x7b"], n_layers=4)
+    served = {
+        "serve_dense": (ARCHS["qwen2-0.5b"], RunConfig(
+            model=ARCHS["qwen2-0.5b"], shape=serve("serve_h100", 2048)), 8,
+            True),
+        "serve_moe": (moe, RunConfig(model=moe, shape=ShapeConfig(
+            "serve_h100", 8192, 4, "prefill")), 4, True),
+        "serve_hybrid": (ARCHS["hymba-1.5b"], RunConfig(
+            model=ARCHS["hymba-1.5b"], shape=serve("serve_h100", 2048)), 8,
+            True),
+        "serve_rwkv": (ARCHS["rwkv6-3b"], RunConfig(
+            model=ARCHS["rwkv6-3b"], shape=serve("serve_h100", 2048)), 8,
+            True),
+        "serve_whisper": (whisper, RunConfig(model=whisper, shape=serve(
+            "serve_h100", smoke.WHISPER_PROMPT)), 8, False),
+        "serve_vision": (vision, RunConfig(model=vision, shape=serve(
+            "serve_h100", 2048)), 8, False)}
     cells = {
         "whisper": (whisper, RunConfig(model=whisper,
                                        shape=shape("train_whisper_h100"),
@@ -67,20 +97,38 @@ def main(argv) -> int:
     root = tempfile.mkdtemp(prefix="run_mesh_phases_")
     try:
         for name in argv or list(cells):
-            cfg, rc, steps, int8 = cells[name]
-            label = f"train_mesh_{name}"
+            if name in served:
+                cfg, rc, batch, held = served[name]
+                label = name.replace("serve_", "serve_mesh_")
+                free = {} if held else None
+                if held:
+                    smoke.phase_serve(cfg, rc, batch, root, free)
+            else:
+                cfg, rc, steps, int8 = cells[name]
+                label = f"train_mesh_{name}"
             for mod, attr in counters:
                 setattr(mod, attr, 0)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             report: dict = {}
             t0 = time.monotonic()
-            smoke.phase_train_mesh_family(cfg, rc, root, report, label,
-                                          steps, (2,), int8=int8)
-            torch.cuda.synchronize()
-            smoke.report_train_mesh_family(
-                label, cfg, rc, report, torch.cuda.max_memory_allocated(),
-                time.monotonic() - t0, card)
+            if name in served:
+                want = smoke._served(free) if held else None
+                smoke.phase_serve_mesh(cfg, rc, batch, root, report, label,
+                                       want=want)
+                torch.cuda.synchronize()
+                smoke.report_serve_mesh(
+                    label, cfg, rc, batch, report, free,
+                    torch.cuda.max_memory_allocated(),
+                    time.monotonic() - t0, card)
+            else:
+                smoke.phase_train_mesh_family(cfg, rc, root, report, label,
+                                              steps, (2,), int8=int8)
+                torch.cuda.synchronize()
+                smoke.report_train_mesh_family(
+                    label, cfg, rc, report,
+                    torch.cuda.max_memory_allocated(),
+                    time.monotonic() - t0, card)
             smoke.log(f"{label}: launches checksum, XOR, quantize, "
                       f"dequantize {[getattr(m, a) for m, a in counters]}")
     finally:
