@@ -87,12 +87,35 @@ each fatal on failure:
      largest difference printed); the XOR-delta image at token 10 (on a
      full one at 6) restored onto the mesh decodes the next tokens again
      bit for bit, and restored without a mesh equals the gathered
-     state.  serve_mesh_dense, _moe, _hybrid and _rwkv serve their
-     serve_* cells uncut and are held to those phases' logits and
-     tokens, kept on the host; serve_mesh_whisper and serve_mesh_vision
-     serve serve_whisper's and serve_vision's cells cut to
+     state.  serve_mesh_dense and _moe serve their serve_* cells uncut
+     and are held to those phases' logits and tokens, kept on the host;
+     serve_mesh_hybrid and _rwkv serve serve_hybrid's and serve_rwkv's
+     cells cut to `MESH_LAYERS` layers, serve_mesh_whisper and
+     serve_mesh_vision serve serve_whisper's and serve_vision's cut to
      `MESH_LAYERS` + `MESH_LAYERS` layers and to train_vision's one
      group of 3, each beside a mesh-free twin at that depth;
+  remat (after the train phases, before the mesh phases): the remat
+     policies of `repro_torch.models.remat` on the training cell
+     (qwen2-0.5b at full width and depth, B 8 x S 1024, bf16 compute):
+     from one state, `REMAT_STEPS` train steps under each of "full",
+     "none", "dots" and "comm"; the loss, the grad norm and every
+     updated parameter under "dots" and "comm" must be "full"'s bits
+     ("none"'s largest difference from them printed); each policy's
+     step peak (`max_memory_allocated` above what was allocated before
+     the step) and median step time beside the dry-run's predictions
+     for the same cell (the step's live-set peak and its dot FLOPs, from
+     `dry_run` on fake CUDA tensors in a process started with the
+     smoke); both the measured and the predicted peaks must order none
+     >= dots >= comm >= full, with none > full;
+  dryrun (last): the dry-run's two cells, each `python -m
+     repro_torch.launch.dryrun` in a process started with the smoke that
+     runs on the host beside the phases (a `fake` process group of 512
+     or 256 ranks, fake CUDA tensors): qwen1.5-0.5b x decode_32k on
+     2x16x16 (the reference test's cell) and qwen2-0.5b x train_4k on
+     16x16; each must come back "ok" with dot FLOPs above 0 and a peak,
+     and the training cell with collective bytes above 0; each cell's
+     line is printed with how long after its start the job was seen
+     done;
   4. report: step times, image bytes, write/restore seconds, peak device
      memory, and one JSON line of the kernels with their launches on the
      main path.  The counts are set to 0 just before each main-path
@@ -106,8 +129,8 @@ each fatal on failure:
      train_mesh_moe, train_mesh_vision: checksum; serving, on a mesh
      too: checksum, XOR; world_pipeline and world_cross: XOR; quickstart,
      preempt: checksum; train_moe, train_hybrid, train_rwkv,
-     train_whisper, train_vision: all four), and `launches` is their
-     sum.  The peak device memory is reset before each phase and printed
+     train_whisper, train_vision: all four; remat, dryrun: none), and
+     `launches` is their sum.  The peak device memory is reset before each phase and printed
      per phase, with each phase's wall time.
   serve_dense, serve_moe, serve_hybrid, serve_rwkv, serve_whisper,
      serve_vision: the serving path (`make_serve_steps`) with live
@@ -2058,6 +2081,179 @@ def report_entry_points(r: dict, peaks: dict, wall: dict, card: str):
             f"{peaks[name]} bytes ({peaks[name] / 2**30:.2f} GiB) [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# remat and dryrun
+# ---------------------------------------------------------------------------
+
+# run "full" first: the other policies are held to its bits
+REMAT_POLICIES = ("full", "none", "dots", "comm")
+REMAT_STEPS = 3
+# the dry-run's cells, each `python -m repro_torch.launch.dryrun` in a
+# process of its own: the reference test's decode cell on 2x16x16, and
+# the training cell on 16x16
+DRYRUN_CELLS = {"decode": ("qwen1.5-0.5b", "decode_32k", "pod"),
+                "train": ("qwen2-0.5b", "train_4k", "single")}
+# the dry-run's prediction of the remat phase's cell under each policy,
+# on fake CUDA tensors, in a process of its own
+PREDICT_REMAT = r"""
+import json, sys, time
+from repro_torch.configs import ARCHS
+from repro_torch.configs.base import RunConfig, ShapeConfig
+from repro_torch.launch.dryrun import dry_run
+
+arch, seq, batch = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+cfg = ARCHS[arch]
+shape = ShapeConfig("smoke_h100", seq, batch, "train")
+out = {}
+for policy in sys.argv[4].split(","):
+    t0 = time.monotonic()
+    cell = dry_run(cfg, shape, RunConfig(model=cfg, shape=shape,
+                                         remat_policy=policy), None, "cuda")
+    out[policy] = dict(cell["memory"], dot_flops=cell["hlo"]["dot_flops"],
+                       s=time.monotonic() - t0)
+print(json.dumps(out), flush=True)
+"""
+
+
+def start_dry_runs(src: str, root: str, cfg, rc) -> dict:
+    """Start the dry-run's processes (they run on the host, beside the
+    card's phases): one per cell of `DRYRUN_CELLS`, and the remat
+    phase's predictions for (cfg, rc.shape).  {name: (process, output
+    path, start time)}; each writes its standard output and errors to
+    the output path."""
+    env = dict(os.environ, PYTHONPATH=src)
+    argv = {name: [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--mesh", mesh,
+                   "--out", os.path.join(root, f"dryrun_{name}.json")]
+            for name, (arch, shape, mesh) in DRYRUN_CELLS.items()}
+    argv["predict"] = [sys.executable, "-c", PREDICT_REMAT, cfg.arch_id,
+                       str(rc.shape.seq_len), str(rc.shape.global_batch),
+                       ",".join(REMAT_POLICIES)]
+    jobs = {}
+    for name, cmd in argv.items():
+        path = os.path.join(root, f"dryrun_{name}.log")
+        with open(path, "w") as f:
+            jobs[name] = (subprocess.Popen(cmd, env=env, stdout=f,
+                                           stderr=subprocess.STDOUT),
+                          path, time.monotonic())
+    return jobs
+
+
+def _finished(jobs: dict, name: str, timeout: float = 900) -> str:
+    """The output of dry-run job `name` after it exits (raises unless it
+    exits 0); logs how long after its start it was seen done."""
+    proc, path, t0 = jobs[name]
+    ran = proc.poll() is None
+    code = proc.wait(timeout=timeout)
+    with open(path) as f:
+        text = f.read()
+    log(f"dry-run job {name}: exit {code}, "
+        f"{'ended' if ran else 'had ended by'} {time.monotonic() - t0:.1f} s "
+        f"after its start")
+    if code != 0:
+        raise AssertionError(f"dry-run job {name} failed:\n{text[-3000:]}")
+    return text
+
+
+def phase_remat(cfg, rc, report: dict, jobs: dict):
+    """The remat policies (`repro_torch.models.remat`) on the training
+    cell: from one state, one train step under each of
+    `REMAT_POLICIES`, `REMAT_STEPS` times; loss, grad norm and every
+    updated parameter under "dots" and "comm" must be "full"'s bits
+    ("none"'s largest difference from them is printed).  Each step's
+    peak (`max_memory_allocated` above what was allocated before it) and
+    the median step time, beside the dry-run's predictions for the same
+    cell (`dry_run` on fake CUDA tensors: the step's live-set peak and
+    its dot FLOPs); the measured and the predicted peaks must both order
+    none >= dots >= comm >= full, with none > full."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.training.step import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = init_train_state(cfg, rc, gen, dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticDataset(
+        cfg, rc.shape, seed=0).get_batch(0).items()}
+    full = None
+    for policy in REMAT_POLICIES:
+        step = make_train_step(cfg, dataclasses.replace(
+            rc, remat_policy=policy))
+        times, peaks = [], []
+        for i in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            new, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() - before)
+            if i == 0:
+                got = ([metrics["loss"], metrics["grad_norm"]]
+                       + tree_leaves(new["params"]))
+            del new, metrics
+        if full is None:
+            full = got
+        elif policy == "none":
+            report["none_max_diff"] = max(float((a - b).abs().max())
+                                          for a, b in zip(got, full))
+        elif not all(torch.equal(a, b) for a, b in zip(got, full)):
+            raise AssertionError(f"remat: {policy} is not full's bits")
+        del got
+        report[policy] = {"step_s": sorted(times), "peak": max(peaks)}
+    del full, state
+    predicted = json.loads(_finished(jobs, "predict").splitlines()[-1])
+    for policy in REMAT_POLICIES:
+        report[policy]["predicted"] = predicted[policy]
+    order = ("none", "dots", "comm", "full")
+    for what, peak in (("measured", lambda p: report[p]["peak"]),
+                       ("predicted", lambda p: predicted[p]["temp_bytes"])):
+        got = [peak(p) for p in order]
+        if not (got == sorted(got, reverse=True) and got[0] > got[-1]):
+            raise AssertionError(f"remat: {what} step peaks {got} do not "
+                                 f"order none >= dots >= comm >= full")
+
+
+def report_remat(report: dict, card: str) -> None:
+    none_flops = report["none"]["predicted"]["dot_flops"]
+    for policy in REMAT_POLICIES:
+        r, p = report[policy], report[policy]["predicted"]
+        log(f"remat {policy}: step peak {r['peak']} bytes, predicted "
+            f"{p['temp_bytes']} (measured / predicted "
+            f"{r['peak'] / p['temp_bytes']:.4f}); predicted peak_bytes "
+            f"{p['peak_bytes']} with the state and batch "
+            f"({p['argument_bytes']}); median step "
+            f"{r['step_s'][len(r['step_s']) // 2]:.4f} s of "
+            f"{[round(t, 4) for t in r['step_s']]}; predicted dot FLOPs "
+            f"{p['dot_flops']} ({p['dot_flops'] / none_flops:.4f} x none's;"
+            f" the prediction took {p['s']:.1f} s) [{card}]")
+    log(f"remat: full, dots and comm bit-equal (loss, grad norm, every "
+        f"updated param); none's largest difference from them "
+        f"{report['none_max_diff']:.3e} [{card}]")
+
+
+def phase_dryrun(report: dict, jobs: dict):
+    """The dry-run's two cells (`DRYRUN_CELLS`), started with the smoke:
+    each must come back "ok" with dot FLOPs and a peak, and the training
+    cell with collective bytes."""
+    for name in DRYRUN_CELLS:
+        text = _finished(jobs, name)
+        proc, path, _ = jobs[name]
+        with open(path.replace(".log", ".json")) as f:
+            (cell,) = json.load(f)
+        cell.pop("trace", None)
+        log(f"dry-run {name}: {json.dumps(cell)}")
+        if cell["status"] != "ok" or not cell["hlo"]["dot_flops"] > 0 \
+                or cell["memory"]["peak_bytes"] is None \
+                or (name == "train" and not cell["collectives"]["total"] > 0):
+            raise AssertionError(f"dry-run {name}: {cell}\n{text[-3000:]}")
+        report[name] = cell
+
+
 def main() -> int:
     import torch
 
@@ -2179,7 +2375,17 @@ def main() -> int:
                                                 model=mesh_whisper_cfg)
     mesh_serve_vision_rc = dataclasses.replace(vision_rc,
                                                model=train_vision_cfg)
+    # hymba-1.5b and rwkv6-3b serve on the mesh cut to `MESH_LAYERS`,
+    # beside their own twins, for the smoke's time (at 32 layers they
+    # took 17.7 and 12.8 s, held to serve_hybrid's and serve_rwkv's
+    # logits)
+    mesh_serve_hybrid_rc = dataclasses.replace(hybrid_rc,
+                                               model=mesh_hybrid_cfg)
+    mesh_serve_rwkv_rc = dataclasses.replace(rwkv_rc, model=mesh_rwkv_cfg)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
+    # the dry-run's processes run on the host beside the phases below;
+    # the remat and dryrun phases collect them
+    jobs = start_dry_runs(src, root, cfg, rc)
     report: dict = {"serve_dense": {}, "serve_moe": {}, "serve_hybrid": {},
                     "serve_rwkv": {}, "serve_whisper": {}, "serve_vision": {},
                     "world_pipeline": {}, "world_cross": {},
@@ -2192,7 +2398,8 @@ def main() -> int:
                     "train_mesh_whisper": {}, "train_mesh_vision": {},
                     "serve_mesh_dense": {}, "serve_mesh_moe": {},
                     "serve_mesh_hybrid": {}, "serve_mesh_rwkv": {},
-                    "serve_mesh_whisper": {}, "serve_mesh_vision": {}}
+                    "serve_mesh_whisper": {}, "serve_mesh_vision": {},
+                    "remat": {}, "dryrun": {}}
     counters = {"checksum": (cops, "launches"), "xor_delta": (dops, "launches"),
                 "quantize_int8": (qops, "launches"),
                 "dequantize_int8": (qops, "dequantize_launches")}
@@ -2253,6 +2460,9 @@ def main() -> int:
             train_vision_cfg, train_vision_rc, root, report["train_vision"],
             "train_vision"),
             ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+        # the remat policies on the training cell, beside the dry-run's
+        # predictions (started with the smoke)
+        "remat": (lambda: phase_remat(cfg, rc, report["remat"], jobs), ()),
         # the mesh phases last, on one NCCL group (`nccl_mesh`): after
         # phase 2 and train_moe, whose mesh-free losses they are held to
         "train_mesh": (lambda: phase_train_mesh_family(
@@ -2299,12 +2509,12 @@ def main() -> int:
             "serve_mesh_moe", want=_served(report["serve_moe"])),
             ("checksum", "xor_delta")),
         "serve_mesh_hybrid": (lambda: phase_serve_mesh(
-            hybrid_cfg, hybrid_rc, 8, root, report["serve_mesh_hybrid"],
-            "serve_mesh_hybrid", want=_served(report["serve_hybrid"])),
+            mesh_hybrid_cfg, mesh_serve_hybrid_rc, 8, root,
+            report["serve_mesh_hybrid"], "serve_mesh_hybrid"),
             ("checksum", "xor_delta")),
         "serve_mesh_rwkv": (lambda: phase_serve_mesh(
-            rwkv_cfg, rwkv_rc, 8, root, report["serve_mesh_rwkv"],
-            "serve_mesh_rwkv", want=_served(report["serve_rwkv"])),
+            mesh_rwkv_cfg, mesh_serve_rwkv_rc, 8, root,
+            report["serve_mesh_rwkv"], "serve_mesh_rwkv"),
             ("checksum", "xor_delta")),
         "serve_mesh_whisper": (lambda: phase_serve_mesh(
             mesh_whisper_cfg, mesh_serve_whisper_rc, 8, root,
@@ -2314,6 +2524,8 @@ def main() -> int:
             train_vision_cfg, mesh_serve_vision_rc, 8, root,
             report["serve_mesh_vision"], "serve_mesh_vision"),
             ("checksum", "xor_delta")),
+        # the dry-run's two cells, started with the smoke
+        "dryrun": (lambda: phase_dryrun(report["dryrun"], jobs), ()),
     }
     by_phase, peaks, wall = {}, {}, {}
     try:
@@ -2336,6 +2548,10 @@ def main() -> int:
                 + (f" (of them in socket rank processes: {elsewhere})"
                    if elsewhere else ""))
     finally:
+        for proc, _, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         # the mesh phases' NCCL group, made by the first of them
         if _MESH:
             import torch.distributed as dist
@@ -2377,8 +2593,9 @@ def main() -> int:
     for name, c, r, b, free in (
             ("serve_mesh_dense", cfg, dense_rc, 8, "serve_dense"),
             ("serve_mesh_moe", moe_cfg, moe_rc, 4, "serve_moe"),
-            ("serve_mesh_hybrid", hybrid_cfg, hybrid_rc, 8, "serve_hybrid"),
-            ("serve_mesh_rwkv", rwkv_cfg, rwkv_rc, 8, "serve_rwkv"),
+            ("serve_mesh_hybrid", mesh_hybrid_cfg, mesh_serve_hybrid_rc, 8,
+             None),
+            ("serve_mesh_rwkv", mesh_rwkv_cfg, mesh_serve_rwkv_rc, 8, None),
             ("serve_mesh_whisper", mesh_whisper_cfg, mesh_serve_whisper_rc,
              8, None),
             ("serve_mesh_vision", train_vision_cfg, mesh_serve_vision_rc, 8,
@@ -2398,6 +2615,7 @@ def main() -> int:
                  report["serve_vision"], card)
     report_worlds(report, peaks, wall, card)
     report_entry_points(report, peaks, wall, card)
+    report_remat(report["remat"], card)
     for name, c, r in (("train_moe", train_moe_cfg, train_moe_rc),
                        ("train_hybrid", train_hybrid_cfg, train_hybrid_rc),
                        ("train_rwkv", train_rwkv_cfg, train_rwkv_rc),

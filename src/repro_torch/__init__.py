@@ -89,7 +89,8 @@ VERBATIM_COPIES = (
     "configs/whisper_large_v3.py",
 )
 
-# (module path, name) pairs copied verbatim into rewritten modules
+# (module path, name) pairs copied verbatim into rewritten modules (a
+# function, a class or a module-level constant)
 VERBATIM_FUNCTIONS = (
     ("kernels/checksum/ref.py", "_block_sums_np"),
     ("kernels/checksum/ref.py", "checksum_np"),
@@ -116,6 +117,8 @@ VERBATIM_FUNCTIONS = (
     ("comm/transport/harness.py", "SupervisedRun"),
     ("comm/transport/harness.py", "_image_restorable"),
     ("comm/transport/harness.py", "run_world_supervised"),
+    ("launch/dryrun.py", "COLLECTIVE_OPS"),
+    ("launch/dryrun.py", "production_rc"),
 )
 
 

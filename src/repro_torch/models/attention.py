@@ -22,7 +22,9 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.layers import _dense_init, apply_rope, pad_dim
+from repro_torch.models.layers import (_dense_init, apply_rope,
+                                       hold_placements, pad_dim)
+from repro_torch.models.remat import saved_result
 from repro_torch.sharding.rules import on_local_shards
 
 NEG_INF = -1e9
@@ -169,10 +171,18 @@ def _attend(q, k, v, keep):
 
 
 def _heads_last(blocks):
-    """(B,K,c,G,hd) blocks in query order -> (B,S,H,hd)."""
+    """(B,K,c,G,hd) blocks in query order -> (B,S,H,hd).  On a mesh the
+    gradient keeps the output's placements: the output projection's
+    backward would split its heads over "model" as the weights are,
+    which the view back to (K, G) cannot take where the K groups do not
+    divide over those ranks (`_whole_groups`; qwen2-0.5b's 2 KV heads
+    on the production mesh's 16)."""
     o = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=2)
     B, K, S, G, hd = o.shape
-    return o.permute(0, 2, 1, 3, 4).reshape(B, S, K * G, hd)
+    o = o.permute(0, 2, 1, 3, 4).reshape(B, S, K * G, hd)
+    if hasattr(o, "device_mesh"):
+        o = hold_placements(o, o.device_mesh, o.placements)
+    return o
 
 
 def _scores(q, k, keep):
@@ -182,6 +192,16 @@ def _scores(q, k, keep):
     if keep is not None:
         s = s.masked_fill(~keep, NEG_INF)
     return s
+
+
+def _attend_forward(q, k, v, keep):
+    """`_Attend`'s forward -> (out, row log-sum-exp)."""
+    dtype = q.dtype
+    s = _scores(q, k, keep)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).to(dtype).to(torch.float32)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return (torch.matmul(p, v) / l).to(dtype), m + torch.log(l)
 
 
 class _Attend(torch.autograd.Function):
@@ -198,13 +218,10 @@ class _Attend(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, keep):
-        dtype = q.dtype
-        s = _scores(q, k, keep)
-        m = s.amax(dim=-1, keepdim=True)
-        p = torch.exp(s - m).to(dtype).to(torch.float32)
-        l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-        out = (torch.matmul(p, v) / l).to(dtype)
-        ctx.save_for_backward(q, k, v, keep, out, m + torch.log(l))
+        # under remat "dots" one saved product, as the reference's custom
+        # VJP is to XLA's remat (`repro_torch.models.remat.saved_result`)
+        out, lse = saved_result(_attend_forward, q, k, v, keep)
+        ctx.save_for_backward(q, k, v, keep, out, lse)
         return out
 
     @staticmethod

@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.remat import checkpoint_name
+
 
 def _norm_init(shape, device):
     return torch.ones(shape, dtype=torch.float32, device=device)
@@ -44,6 +46,28 @@ def head_rms_norm(x, eps: float = 1e-5):
     x = x.to(torch.float32)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps)).to(dt)
+
+
+def hold_placements(x, mesh, want):
+    """DTensor `x` redistributed to `want`, and its gradient too in the
+    backward, which DTensor would otherwise leave as the op that made it
+    chose (the transpose of the reference's sharding constraint, which
+    constrains the cotangent as well)."""
+    return _Hold.apply(x, mesh, tuple(want))
+
+
+class _Hold(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, want):
+        ctx.mesh, ctx.want = mesh, want
+        return x if tuple(x.placements) == want else x.redistribute(mesh,
+                                                                      want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.want:
+            grad = grad.redistribute(ctx.mesh, ctx.want)
+        return grad, None, None
 
 
 def pad_dim(x, n: int, dim: int, *, end: bool = False):
@@ -117,7 +141,9 @@ def mlp_apply(p, x):
     h = torch.einsum("bsd,df->bsf", x, p["wg"].to(x.dtype))
     g = F.silu(h)
     u = torch.einsum("bsd,df->bsf", x, p["wi"].to(x.dtype))
-    return torch.einsum("bsf,fd->bsd", g * u, p["wo"].to(x.dtype))
+    gu, wo = g * u, p["wo"].to(x.dtype)
+    with checkpoint_name("mlp_out"):
+        return torch.einsum("bsf,fd->bsd", gu, wo)
 
 
 # --------------------------------------------------------------------------
@@ -135,14 +161,19 @@ def init_embed(gen, vocab: int, d_model: int, tie: bool, *, device):
     return params, logical
 
 
-def sum_rows_by_id(rows, ids, n: int):
+@torch.library.custom_op("repro_torch::sum_rows_by_id", mutates_args=())
+def sum_rows_by_id(rows: torch.Tensor, ids: torch.Tensor,
+                   n: int) -> torch.Tensor:
     """(N, d) `rows` summed per id into an (n, d) float32 tensor, the
     rows of each id added in an order fixed by the ids alone: a stable
     sort puts equal ids together, and each run of equal ids is summed
     pairwise (rank r takes rank r + s, s = 1, 2, 4, ...).  Every write
     goes to distinct rows, so no two adds race, and the result is the
     same bits on every run and every device (an `index_add_` on CUDA
-    adds repeated ids with atomics, in no fixed order)."""
+    adds repeated ids with atomics, in no fixed order).  An op of its
+    own, so that a step runs on fake tensors too (the dry-run): its
+    shapes depend on the ids' values, and its fake version gives the
+    (n, d) result from the shapes alone."""
     if ids.numel() == 0:
         return rows.new_zeros((n, rows.shape[1]), dtype=torch.float32)
     order = torch.argsort(ids, stable=True)
@@ -165,6 +196,25 @@ def sum_rows_by_id(rows, ids, n: int):
     out[ids[starts]] = acc[starts]
     return out
 
+
+@sum_rows_by_id.register_fake
+def _(rows, ids, n):
+    return rows.new_empty((n, rows.shape[1]), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::sum_block_rows_by_id", mutates_args=())
+def sum_block_rows_by_id(rows: torch.Tensor, ids: torch.Tensor, lo: int,
+                         n: int) -> torch.Tensor:
+    """`sum_rows_by_id` of the rows whose ids fall in lo..lo+n-1 (a
+    rank's block of a table's rows), into (n, d) at id - lo; an op of
+    its own for the same reason."""
+    keep = (ids >= lo) & (ids < lo + n)
+    return sum_rows_by_id(rows[keep], ids[keep] - lo, n)
+
+
+@sum_block_rows_by_id.register_fake
+def _(rows, ids, lo, n):
+    return rows.new_empty((n, rows.shape[1]), dtype=torch.float32)
 
 class _EmbedGather(torch.autograd.Function):
     """rows = table[ids] cast to `dtype`; the backward sums the gradient
@@ -238,8 +288,7 @@ class _MeshEmbedGather(torch.autograd.Function):
         ids = tokens.full_tensor().reshape(-1).to(torch.int64)
         g = grad.full_tensor().reshape(ids.numel(), -1)
         lo, size = _vocab_range(table_shape[0], mesh, vdims)
-        keep = (ids >= lo) & (ids < lo + size)
-        local = sum_rows_by_id(g[keep], ids[keep] - lo, size)
+        local = sum_block_rows_by_id(g, ids, lo, size)
         return (DTensor.from_local(local, mesh, table_pl, run_check=False),
                 None, None, None)
 
@@ -293,6 +342,65 @@ def vocab_logit_mask(v_padded: int, v_real: int, device=None):
     return torch.where(cols < v_real, 0.0, -1e9).to(torch.float32)
 
 
+def _logsumexp(logits):
+    """`torch.logsumexp` over the last dim, keepdim.  On a mesh (DTensor
+    logits) `_MeshLogSumExp`: DTensor's own gathers a vocab-split dim
+    whole first (5.0 GB a loss chunk of qwen2-0.5b's train_4k cell on
+    the 16 x 16 mesh, in the dry-run)."""
+    if not hasattr(logits, "device_mesh"):
+        return torch.logsumexp(logits, dim=-1, keepdim=True)
+    return _MeshLogSumExp.apply(logits)
+
+
+class _MeshLogSumExp(torch.autograd.Function):
+    """ATen's logsumexp, op for op (the row max, the exponentials' sum,
+    its log plus the max; backward grad * exp(x - lse)), on DTensors: a
+    vocab-split dim is reduced by partial sums of (B, c, 1) values, and
+    on one device the bits are `torch.logsumexp`'s."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = x.amax(dim=-1, keepdim=True)
+        m = m.masked_fill(m.abs() == math.inf, 0)
+        lse = (x - m).exp().sum(dim=-1, keepdim=True).log() + m
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, lse = ctx.saved_tensors
+        return grad * (x - lse).exp()
+
+
+def _target_logit(logits, idx):
+    """`torch.gather(logits, -1, idx)`, (B, c, 1).  On a mesh (DTensor
+    logits) on local shards: each rank picks the labels that fall in
+    its block of the vocabulary and zero elsewhere, a partial sum over
+    the mesh dims that split the vocabulary, whose sum is the gathered
+    value exactly (one term is nonzero).  DTensor's own gather on a
+    vocab-split dim keeps a masked partial sum, and its backward makes
+    a zero tensor of the global (B, c, V) logits on every rank (79.7 GB
+    a loss chunk of qwen2-0.5b's train_4k cell on the 16 x 16 mesh, in
+    the dry-run); here the backward writes each rank's own block."""
+    if not hasattr(logits, "device_mesh"):
+        return torch.gather(logits, -1, idx)
+    from torch.distributed.tensor import Partial
+
+    from repro_torch.sharding.rules import on_local_shards
+
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    vdims = tuple(i for i, p in enumerate(pl) if p.is_shard(2))
+    lo, size = _vocab_range(logits.shape[-1], mesh, vdims)
+
+    def pick(logits, idx):
+        keep = (idx >= lo) & (idx < lo + size)
+        got = torch.gather(logits, -1, torch.where(keep, idx - lo, 0))
+        return torch.where(keep, got, 0.0)
+
+    out = tuple(Partial() if i in vdims else p for i, p in enumerate(pl))
+    return on_local_shards(pick, (logits, idx), (pl, idx.placements), out)
+
+
 def chunked_softmax_xent(h, head, labels, mask, chunk: int,
                          valid_vocab: int = 0):
     """Sequence-chunked cross entropy: never materializes (B,S,V) logits.
@@ -305,7 +413,8 @@ def chunked_softmax_xent(h, head, labels, mask, chunk: int,
     contracts a one-hot instead because a gather on a vocab-sharded
     axis makes GSPMD replicate; both select the same single f32 value,
     so the math is the same, and the gather never builds the
-    (B, c, V) one-hot (2.5 GB per chunk at vocab 151936).
+    (B, c, V) one-hot (2.5 GB per chunk at vocab 151936).  On a mesh
+    the gather runs on local shards (`_target_logit`).
     """
     B, S, d = h.shape
     chunk = min(chunk, S)
@@ -322,11 +431,10 @@ def chunked_softmax_xent(h, head, labels, mask, chunk: int,
         logits = torch.einsum("bcd,dv->bcv", hx, w).to(torch.float32)
         if vmask is not None:
             logits = logits + vmask
-        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        lse = _logsumexp(logits)
         # (B, c, 1) until the difference: on a vocab-sharded mesh the
-        # gathered value is a masked partial sum, which DTensor reduces
-        # only at the gather's own shape
-        tgt = torch.gather(logits, -1, lx.to(torch.int64)[..., None])
+        # picked value is a partial sum, reduced at this shape
+        tgt = _target_logit(logits, lx.to(torch.int64)[..., None])
         loss = (lse - tgt)[..., 0] * mx
         tot = tot + loss.sum()
         cnt = cnt + mx.sum()

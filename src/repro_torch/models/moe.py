@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _dense_init
+from repro_torch.models.remat import checkpoint_name
 from repro_torch.sharding.rules import constrain, on_local_shards
 
 
@@ -234,5 +235,6 @@ def moe_apply(p, x, *, num_experts: int, top_k: int, split: int,
     xin = constrain(xin, rules, ("batch", "expert", None, None))
     yout = _experts(xin, p["wi"], p["wg"], p["wo"])
     yout = constrain(yout, rules, ("batch", "expert", None, None))
-    y = _combine(combine, yout)                         # all-reduce(model)
+    with checkpoint_name("mlp_out"):
+        y = _combine(combine, yout)                     # all-reduce(model)
     return y.reshape(B, S, d), {"moe_aux": aux_loss}

@@ -40,11 +40,17 @@ attention: no `ln1`, no self-attention and no self K/V (its forward
 runs them; ROADMAP.md section C).
 
 Remat: with `rc.remat_policy` other than "none", each block (encoder
-blocks too) runs under `torch.utils.checkpoint` (non-reentrant) and
-saves only its inputs, the reference's "full" policy: a decoder block's
-inputs are its stream and the encoder's output (or the image patches),
-so the gradient of all its cross attentions reaches the encoder.  The
-port has no per-name save policies, so "dots" and "comm" act as "full".
+blocks too) runs under `torch.utils.checkpoint` (non-reentrant) with
+its inputs as its only arguments: a decoder block's inputs are its
+stream and the encoder's output (or the image patches), so the gradient
+of all its cross attentions reaches the encoder.  "full" saves only
+those inputs; "dots" also every matrix product's output; "comm" the
+block outputs "attn_out" (after the attention output projection),
+"mixer_out" (a hybrid block's mean of attention and SSM heads) and
+"mlp_out" (the MLP's or the experts' combined output), each marked
+where it is made (`repro_torch.models.remat`); an rwkv block names
+none, so under "comm" it saves only its inputs, as in the reference.
+The gradients are the same bits under all three.
 
 On a mesh (`rules` set, leaves DTensors), every family trains.  Each
 block's input, an encoder block's too, is placed by its logical axes
@@ -80,6 +86,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models.remat import checkpoint_kwargs, checkpoint_name
 from repro_torch.sharding.rules import constrain
 from repro_torch.tree import tree_map
 
@@ -205,7 +212,25 @@ def _self_attention_seq(cfg: ModelConfig, rc: RunConfig, p, h, positions,
     else:
         o = attn.flash_attention(q, k, v, causal=causal, chunk=rc.attn_chunk)
     o = o * attn.head_mask(cfg, o.device)[None, None, :, None].to(o.dtype)
-    return attn.out_proj(p, o), (k, v)
+    with checkpoint_name("attn_out"):
+        return attn.out_proj(p, o), (k, v)
+
+
+def _to_stream(y, rules):
+    """A sub-block's output placed as the residual stream, ("batch",
+    "seq", None), before it is added, and its gradient placed the same
+    way in the backward.  On a mesh the output projections contract a
+    dim split over "model" and leave a partial sum, and so do the
+    gradients of the input projections: reduced here, where the
+    reference's partitioner reduces them (its sharding constraint
+    transposes to one on the cotangent).  Left partial, the stream or
+    its gradient would reach the next products partial, and those would
+    gather their weights whole over "model" (the dry-run counted 1.2x
+    the reference's per-device dot FLOPs on a (2 x 2) mesh)."""
+    if rules is None or not hasattr(y, "device_mesh"):
+        return y
+    return L.hold_placements(y, rules.mesh, rules.named(
+        ("batch", "seq", None), y.shape).placements)
 
 
 def _cross_attention_seq(cfg, rc, p, h, enc_out):
@@ -243,15 +268,22 @@ def _mixer_block_seq(cfg, rc, rules, p, x, positions, enc_out=None,
     if cfg.ssm_state:
         m_out, cache["ssm"], cache["conv"] = mam.mamba_apply(
             p["mamba"], h, chunk=rc.la_chunk)
-        a_out = (a_out + m_out) * 0.5
+        a_out = a_out + m_out
+        with checkpoint_name("mixer_out"):
+            a_out = _to_stream(a_out * 0.5, rules)
+    else:
+        with checkpoint_name("attn_out"):
+            a_out = _to_stream(a_out, rules)
     x = x + a_out
     if "xattn" in p and enc_out is not None:
         hx = L.rms_norm(x, p["lnx"], cfg.norm_eps)
         x_out, (cache["xk"], cache["xv"]) = _cross_attention_seq(
             cfg, rc, p["xattn"], hx, enc_out)
-        x = x + x_out
+        x = x + _to_stream(x_out, rules)
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _ffn(cfg, rules, p, h2)
+    with checkpoint_name("mlp_out"):
+        y = _to_stream(y, rules)
     x = x + y
     # prefill KV cache: SWA keeps the last `window` positions (ring layout)
     if cfg.sliding_window and causal:
@@ -260,16 +292,17 @@ def _mixer_block_seq(cfg, rc, rules, p, x, positions, enc_out=None,
     return x, aux, cache
 
 
-def _rwkv_block_seq(cfg, rc, p, x):
+def _rwkv_block_seq(cfg, rc, rules, p, x):
     """One rwkv block over a full sequence -> (x, aux, cache): the final
     `la` state and the two token-shift states."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     tm_out, la, shift_a = rwkv_mod.rwkv_time_mix(
         p["tm"], h, chunk=rc.la_chunk, mask=attn.head_mask(cfg, x.device))
-    x = x + tm_out
+    x = x + _to_stream(tm_out, rules)
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     cm_out, shift_c = rwkv_mod.rwkv_channel_mix(p["cm"], h2)
-    return x + cm_out, {}, {"la": la, "shift_a": shift_a, "shift_c": shift_c}
+    return (x + _to_stream(cm_out, rules), {},
+            {"la": la, "shift_a": shift_a, "shift_c": shift_c})
 
 
 def _layer_params(blocks, i: int):
@@ -284,8 +317,7 @@ def _remat(rc, fn, *args):
     is among `args`."""
     if rc.remat_policy == "none" or not torch.is_grad_enabled():
         return fn(*args)
-    return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+    return checkpoint(fn, *args, **checkpoint_kwargs(rc.remat_policy))
 
 
 def _encode(params, cfg, rc, rules, frames):
@@ -337,7 +369,7 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
     def block(x, p, enc_out):
         x = constrain(x, rules, ("batch", "seq", None))
         if cfg.rwkv:
-            x, aux, cache = _rwkv_block_seq(cfg, rc, p, x)
+            x, aux, cache = _rwkv_block_seq(cfg, rc, rules, p, x)
         else:
             x, aux, cache = _mixer_block_seq(cfg, rc, rules, p, x, positions,
                                              enc_out)

@@ -759,12 +759,62 @@ def slot_write(rank: int, d: str, arg: str):
     return out
 
 
+def remat_on_mesh(rank: int, d: str, arg: str):
+    """Step 0's float32 loss and gradients of reduced qwen2-0.5b on the
+    first mesh of `arg` under remat "full" and "comm", and without a
+    mesh under "comm": {"loss_equal", "grads_equal": "comm" against
+    "full" on the mesh, bit for bit; "max_rel": the largest relative
+    difference (norm) of a mesh gradient under "comm" from the mesh-free
+    one}."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    cfg, rc = reduced()
+    rt = _runtime(os.path.join(d, "remat"), _mesh(_shapes(arg)[0]))
+    rt.initialize()
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticDataset(cfg, rc.shape).get_batch(0).items()}
+
+    def run(params, batch, rules, policy):
+        run_rc = dataclasses.replace(rc, dtype="float32",
+                                     remat_policy=policy)
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        with implicit_replication():
+            loss, _ = T.forward_loss(tree_unflatten(params, leaves), cfg,
+                                     run_rc, rules, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.full_tensor(), [g.full_tensor() for g in grads]
+
+    on_mesh = {p: run(rt.state["params"], rt._split_batch(batch),
+                      rt.lower.rules, p) for p in ("full", "comm")}
+    full = tree_map(lambda x: x.full_tensor(), rt.state["params"])
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(full)]
+    loss, _ = T.forward_loss(tree_unflatten(full, leaves), cfg,
+                             dataclasses.replace(rc, dtype="float32",
+                                                 remat_policy="comm"),
+                             None, batch)
+    plain = torch.autograd.grad(loss, leaves)
+    rt.close()
+    (l_full, g_full), (l_comm, g_comm) = on_mesh["full"], on_mesh["comm"]
+    return {"loss_equal": bool(torch.equal(l_full, l_comm)),
+            "grads_equal": all(torch.equal(a, b)
+                               for a, b in zip(g_full, g_comm)),
+            "max_rel": max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                           for a, b in zip(g_comm, plain))}
+
+
 SCENARIOS = {"train_and_restore": train_and_restore,
              "embed_on_mesh": embed_on_mesh,
              "moe_parts": moe_parts,
              "la_parts": la_parts,
              "serve_on_mesh": serve_on_mesh,
-             "slot_write": slot_write}
+             "slot_write": slot_write,
+             "remat_on_mesh": remat_on_mesh}
 # scenarios that take no arch: run once, before the arch loop
 ARCH_FREE = ("slot_write",)
 

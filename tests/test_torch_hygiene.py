@@ -82,6 +82,9 @@ def _top_level(source: str, name: str) -> str:
         if (isinstance(node, (ast.FunctionDef, ast.ClassDef))
                 and node.name == name):
             return ast.get_source_segment(source, node)
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == name for t in node.targets):
+            return ast.get_source_segment(source, node)
     raise AssertionError(f"{name} not found")
 
 

@@ -2,13 +2,15 @@
 """`chip_smoke.py`'s mesh phases alone, on one GPU: a short call that
 compiles and checks them before the whole smoke.
 
-    python3 tools/run_mesh_phases.py [whisper] [vision] [serve_dense]
-        [serve_moe] [serve_hybrid] [serve_rwkv] [serve_whisper]
-        [serve_vision]
+    python3 tools/run_mesh_phases.py [dense] [whisper] [vision]
+        [serve_dense] [serve_moe] [serve_hybrid] [serve_rwkv]
+        [serve_whisper] [serve_vision] [remat] [dryrun]
 
 It builds the kernels, then runs each phase named (whisper and vision by
 default) at the smoke's cells, on the smoke's (1 x 1) NCCL mesh.
-whisper and vision: `chip_smoke.phase_train_mesh_family` for
+dense: `chip_smoke.phase_train_mesh_family` for qwen2-0.5b at the
+training cell (4 steps beside a mesh-free twin, an image at step 2, the
+int8 image).  whisper and vision: the same for
 whisper-large-v3 at full width cut to `MESH_LAYERS` in both stacks (3
 steps beside a mesh-free twin, an image at step 2, the int8 image), and
 llama-3.2-vision-11b at train_vision's cell (4 steps, one full image at
@@ -17,9 +19,13 @@ train_vision does not run, it runs its own mesh-free twin of the same 4
 steps.  serve_*: `chip_smoke.phase_serve_mesh` at the smoke's serve
 mesh cells, with `kv_time_shard`; serve_dense, serve_moe, serve_hybrid
 and serve_rwkv first run their mesh-free `phase_serve`, whose logits and
-tokens the mesh run is held to, as in the smoke; serve_whisper
+tokens the mesh run is held to, as in the smoke; serve_hybrid and
+serve_rwkv (hymba-1.5b and rwkv6-3b at `MESH_LAYERS`), serve_whisper
 (whisper-large-v3 at `MESH_LAYERS` + `MESH_LAYERS`) and serve_vision
-(one group of `VISION_LAYERS`) run their own twins.  Each phase prints
+(one group of `VISION_LAYERS`) run their own twins.  remat and dryrun:
+`chip_smoke.phase_remat` and `chip_smoke.phase_dryrun` (no mesh of
+their own: the dry-run's processes start first and run beside the
+phases).  Each phase prints
 the smoke's report lines, its wall seconds, its peak device memory and
 the kernels' launches, beside the card's name and power limit; the last
 line is "run_mesh_phases: OK".
@@ -69,23 +75,28 @@ def main(argv) -> int:
         return ShapeConfig(name, S, 8, "prefill")
 
     moe = dataclasses.replace(ARCHS["mixtral-8x7b"], n_layers=4)
+    hybrid = dataclasses.replace(ARCHS["hymba-1.5b"],
+                                 n_layers=smoke.MESH_LAYERS)
+    rwkv = dataclasses.replace(ARCHS["rwkv6-3b"], n_layers=smoke.MESH_LAYERS)
     served = {
         "serve_dense": (ARCHS["qwen2-0.5b"], RunConfig(
             model=ARCHS["qwen2-0.5b"], shape=serve("serve_h100", 2048)), 8,
             True),
         "serve_moe": (moe, RunConfig(model=moe, shape=ShapeConfig(
             "serve_h100", 8192, 4, "prefill")), 4, True),
-        "serve_hybrid": (ARCHS["hymba-1.5b"], RunConfig(
-            model=ARCHS["hymba-1.5b"], shape=serve("serve_h100", 2048)), 8,
-            True),
-        "serve_rwkv": (ARCHS["rwkv6-3b"], RunConfig(
-            model=ARCHS["rwkv6-3b"], shape=serve("serve_h100", 2048)), 8,
-            True),
+        "serve_hybrid": (hybrid, RunConfig(
+            model=hybrid, shape=serve("serve_h100", 2048)), 8, False),
+        "serve_rwkv": (rwkv, RunConfig(
+            model=rwkv, shape=serve("serve_h100", 2048)), 8, False),
         "serve_whisper": (whisper, RunConfig(model=whisper, shape=serve(
             "serve_h100", smoke.WHISPER_PROMPT)), 8, False),
         "serve_vision": (vision, RunConfig(model=vision, shape=serve(
             "serve_h100", 2048)), 8, False)}
+    dense = ARCHS["qwen2-0.5b"]
+    dense_rc = RunConfig(model=dense,
+                         shape=ShapeConfig("smoke_h100", 1024, 8, "train"))
     cells = {
+        "dense": (dense, dense_rc, 4, True),
         "whisper": (whisper, RunConfig(model=whisper,
                                        shape=shape("train_whisper_h100"),
                                        attn_chunk=128), 3, True),
@@ -95,8 +106,25 @@ def main(argv) -> int:
     counters = ((cops, "launches"), (dops, "launches"), (qops, "launches"),
                 (qops, "dequantize_launches"))
     root = tempfile.mkdtemp(prefix="run_mesh_phases_")
+    argv = argv or ["whisper", "vision"]
+    jobs = {}
+    if {"remat", "dryrun"} & set(argv):
+        jobs = smoke.start_dry_runs(os.path.join(ROOT, "src"), root, dense,
+                                    dense_rc)
     try:
-        for name in argv or list(cells):
+        for name in argv:
+            if name in ("remat", "dryrun"):
+                t0 = time.monotonic()
+                report: dict = {}
+                torch.cuda.reset_peak_memory_stats()
+                if name == "remat":
+                    smoke.phase_remat(dense, dense_rc, report, jobs)
+                    smoke.report_remat(report, card)
+                else:
+                    smoke.phase_dryrun(report, jobs)
+                smoke.log(f"{name}: {time.monotonic() - t0:.1f} s, peak "
+                          f"{torch.cuda.max_memory_allocated()} bytes")
+                continue
             if name in served:
                 cfg, rc, batch, held = served[name]
                 label = name.replace("serve_", "serve_mesh_")
@@ -132,6 +160,10 @@ def main(argv) -> int:
             smoke.log(f"{label}: launches checksum, XOR, quantize, "
                       f"dequantize {[getattr(m, a) for m, a in counters]}")
     finally:
+        for proc, _, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         if smoke._MESH:
             import torch.distributed as dist
 
