@@ -62,15 +62,19 @@ each fatal on failure:
      int8 image.  train_mesh_moe: train_moe's config (Mixtral-8x7B at
      full width, 1 layer, B 1 x S 8192, 16 dispatch groups of 512
      tokens, `moe_mode="ep"`), 4 steps with one full image at step 2,
-     held to train_moe's steps 0-3.  train_mesh_hybrid,
+     held to train_moe's steps 0-3, with `fsdp` set (the production
+     setting of Mixtral's train cells: every stacked leaf split on its
+     layer dim over "data", moved off it once a step and each layer
+     gathered at its use; over a data axis of one device DTensor keeps
+     each local tensor, so they copy nothing).  train_mesh_hybrid,
      train_mesh_rwkv and train_mesh_whisper: hymba-1.5b, rwkv6-3b and
-     whisper-large-v3 at full width cut to 2 layers (`MESH_LAYERS`;
+     whisper-large-v3 at full width cut to 1 layer (`MESH_LAYERS`;
      whisper in both stacks, 1500 frames a sample), B 4 x S 4096: 3 steps
      without a mesh, then 3 on the mesh from the same seed with an image
      at step 2, and the int8 image.  train_mesh_vision: train_vision's
      config (llama-3.2-vision-11b at full width, one group of 3 layers,
      1600 patches a sample), 4 steps with one full image at step 2, held
-     to train_vision's steps 0-3;
+     to train_vision's steps 0-3, with `fsdp` set as for MoE;
   serve_mesh_dense, serve_mesh_moe, serve_mesh_hybrid, serve_mesh_rwkv,
      serve_mesh_whisper, serve_mesh_vision (last, after the train mesh
      phases, on the same NCCL group): the serving path on the (1 x 1)
@@ -107,15 +111,19 @@ each fatal on failure:
      `dry_run` on fake CUDA tensors in a process started with the
      smoke); both the measured and the predicted peaks must order none
      >= dots >= comm >= full, with none > full;
-  dryrun (last): the dry-run's two cells, each `python -m
+  dryrun (last): the dry-run's three cells, each `python -m
      repro_torch.launch.dryrun` in a process started with the smoke that
      runs on the host beside the phases (a `fake` process group of 512
      or 256 ranks, fake CUDA tensors): qwen1.5-0.5b x decode_32k on
-     2x16x16 (the reference test's cell) and qwen2-0.5b x train_4k on
-     16x16; each must come back "ok" with dot FLOPs above 0 and a peak,
-     and the training cell with collective bytes above 0; each cell's
-     line is printed with how long after its start the job was seen
-     done;
+     2x16x16 (the reference test's cell), qwen2-0.5b x train_4k on 16x16
+     and stablelm-12b x train_4k on 16x16 (`fsdp`, its production
+     setting: 40 dense layers, 8 KV heads of 32); each must come back
+     "ok" with dot FLOPs above 0 and a peak, the training cells with
+     collective bytes above 0; qwen2-0.5b's (2 KV heads over a "model"
+     axis of 16: each rank attends its own heads) below
+     `TRAIN_CELL_DOT_FLOPS` a device, stablelm-12b's with all-gather
+     bytes above 0 and a peak below the card's 80 GB; each cell's line
+     is printed with how long after its start the job was seen done;
   4. report: step times, image bytes, write/restore seconds, peak device
      memory, and one JSON line of the kernels with their launches on the
      main path.  The counts are set to 0 just before each main-path
@@ -210,15 +218,15 @@ each fatal on failure:
      phase 3 checks qwen2-0.5b's.  Free disk under the phase's directory
      is checked before the images (it fails with the numbers), and each
      image directory is deleted when its check is done.  train_hybrid:
-     the same run for hymba-1.5b at full width cut to 8 of 32 layers
-     (526,542,784 params stored; heads padded to 48 over 6), B 4 x S 4096
+     the same run for hymba-1.5b at full width cut to 4 of 32 layers
+     (314,497,792 params stored; heads padded to 48 over 6), B 4 x S 4096
      (see `TRAIN_4K_BATCH`; four times hymba's SWA window, so the
      sliding-window path); its losses must repeat bit for bit.
-     train_rwkv: the same run for rwkv6-3b at full width cut to 4 of 32
-     layers (704,107,008 params stored, heads padded 40 -> 48), B 4 x S
+     train_rwkv: the same run for rwkv6-3b at full width cut to 2 of 32
+     layers (519,826,944 params stored, heads padded 40 -> 48), B 4 x S
      4096 as train_hybrid.  train_whisper: the same run for
-     whisper-large-v3 at full width cut to 8 of 32 layers in both stacks
-     (699,077,120 params stored), B 4 x S 4096 decoder tokens, 1500
+     whisper-large-v3 at full width cut to 4 of 32 layers in both stacks
+     (415,936,000 params stored), B 4 x S 4096 decoder tokens, 1500
      frames a sample.  These three depths are cut to keep the whole smoke
      inside its time limit (see `HYBRID_LAYERS`).  train_vision: the same
      run for llama-3.2-vision-11b at full width cut to one group of 3
@@ -1079,6 +1087,7 @@ def phase_train_mesh_family(cfg, rc, root: str, report: dict, label: str,
 def report_train_mesh_family(label: str, cfg, rc, r: dict, peak: int,
                              wall: float, card: str):
     mode = f", moe_mode {rc.moe_mode}" if cfg.moe is not None else ""
+    mode += ", fsdp" if rc.fsdp else ""
     log(f"{label} ((1 x 1) NCCL mesh): {cfg.arch_id} at full width, "
         f"{_depth(cfg)} ({_stored_params(cfg)} params stored{mode}), "
         f"B={rc.shape.global_batch} S={rc.shape.seq_len}; step_s "
@@ -1910,14 +1919,17 @@ TRAIN_4K_BATCH, TRAIN_4K_SEQ = 4, 4096
 # HBM3 at 700 W, whose host ran the other phases 14% slower than the
 # fastest seen), past the smoke's 1,120 s budget.  rwkv's 8 layers went
 # to 4 to pay for the six serve mesh phases (train_rwkv took 86.2 s at
-# 8 layers on the 1098.9 s run's host).
-HYBRID_LAYERS, RWKV_LAYERS, WHISPER_LAYERS = 8, 4, 8
+# 8 layers on the 1098.9 s run's host).  At 8, 4 and 8 + 8 they took
+# 46.4, 49.4 and 66.4 s of a 1176.2 s smoke (host-bound phases up to
+# 33% slower than the 1104.3 s run's host; the FSDP mesh phases and the
+# third dry-run process cost ~13 s): cut to 4, 2 and 4 + 4.
+HYBRID_LAYERS, RWKV_LAYERS, WHISPER_LAYERS = 4, 2, 4
 # the depth of hymba-1.5b, rwkv6-3b and whisper-large-v3 (both stacks)
 # on the (1 x 1) mesh, at full width, for the smoke's time: each phase
 # also runs a mesh-free twin, and at 2 layers (images of 2.5, 6.2 and
-# 3.3 GB) each takes 16-30 s on an H100 80GB HBM3 at 700 W; serving
-# whisper on the mesh takes the same cut, beside its own twin
-MESH_LAYERS = 2
+# 3.3 GB) each took 24-38 s of the 1176.2 s smoke on an H100 80GB HBM3
+# at 700 W; serving on the mesh takes the same cut, beside its twins
+MESH_LAYERS = 1
 # llama-3.2-vision-11b at full width cut to one group of 3 layers, 2 self
 # blocks and 1 cross block (`n_layers = cross_attn_every = 3`;
 # 1,746,960,384 params stored, whisper's and hymba's size; the untied
@@ -2089,10 +2101,18 @@ def report_entry_points(r: dict, peaks: dict, wall: dict, card: str):
 REMAT_POLICIES = ("full", "none", "dots", "comm")
 REMAT_STEPS = 3
 # the dry-run's cells, each `python -m repro_torch.launch.dryrun` in a
-# process of its own: the reference test's decode cell on 2x16x16, and
-# the training cell on 16x16
+# process of its own: the reference test's decode cell on 2x16x16, the
+# training cell on 16x16, and the smallest FSDP cell (production_rc sets
+# `fsdp`) on 16x16
 DRYRUN_CELLS = {"decode": ("qwen1.5-0.5b", "decode_32k", "pod"),
-                "train": ("qwen2-0.5b", "train_4k", "single")}
+                "train": ("qwen2-0.5b", "train_4k", "single"),
+                "fsdp": ("stablelm-12b", "train_4k", "single")}
+# the training cell's per-device dot FLOPs must fall below this: with
+# attention whole on each "model" rank (2 KV heads over 16) it read
+# 8.660e13, with each rank's own heads ~2.7e13
+TRAIN_CELL_DOT_FLOPS = 3.5e13
+# the card's memory, which the FSDP cell's per-device peak must fit
+CARD_BYTES = 80e9
 # the dry-run's prediction of the remat phase's cell under each policy,
 # on fake CUDA tensors, in a process of its own
 PREDICT_REMAT = r"""
@@ -2237,9 +2257,11 @@ def report_remat(report: dict, card: str) -> None:
 
 
 def phase_dryrun(report: dict, jobs: dict):
-    """The dry-run's two cells (`DRYRUN_CELLS`), started with the smoke:
-    each must come back "ok" with dot FLOPs and a peak, and the training
-    cell with collective bytes."""
+    """The dry-run's cells (`DRYRUN_CELLS`), started with the smoke: each
+    must come back "ok" with dot FLOPs and a peak, the training cells
+    with collective bytes; the training cell below
+    `TRAIN_CELL_DOT_FLOPS` a device, the FSDP cell with all-gathers and
+    a peak below `CARD_BYTES`."""
     for name in DRYRUN_CELLS:
         text = _finished(jobs, name)
         proc, path, _ = jobs[name]
@@ -2247,9 +2269,17 @@ def phase_dryrun(report: dict, jobs: dict):
             (cell,) = json.load(f)
         cell.pop("trace", None)
         log(f"dry-run {name}: {json.dumps(cell)}")
-        if cell["status"] != "ok" or not cell["hlo"]["dot_flops"] > 0 \
-                or cell["memory"]["peak_bytes"] is None \
-                or (name == "train" and not cell["collectives"]["total"] > 0):
+        ok = (cell["status"] == "ok" and cell["hlo"]["dot_flops"] > 0
+              and cell["memory"]["peak_bytes"] is not None)
+        if ok and name != "decode":
+            ok = cell["collectives"]["total"] > 0
+        if ok and name == "train":
+            ok = cell["hlo"]["dot_flops"] < TRAIN_CELL_DOT_FLOPS
+        if ok and name == "fsdp":
+            ok = (cell["rc"].get("fsdp") is True
+                  and cell["collectives"]["all-gather"] > 0
+                  and cell["memory"]["peak_bytes"] < CARD_BYTES)
+        if not ok:
             raise AssertionError(f"dry-run {name}: {cell}\n{text[-3000:]}")
         report[name] = cell
 
@@ -2355,6 +2385,10 @@ def main() -> int:
     train_vision_rc = RunConfig(model=train_vision_cfg, shape=ShapeConfig(
         "train_vision_h100", TRAIN_4K_SEQ, TRAIN_4K_BATCH, "train"),
         attn_chunk=128)
+    # train_moe's and train_vision's cells on the (1 x 1) mesh with
+    # `fsdp`, the production setting of both archs' train cells
+    mesh_moe_rc = dataclasses.replace(train_moe_rc, fsdp=True)
+    mesh_vision_rc = dataclasses.replace(train_vision_rc, fsdp=True)
     # hymba-1.5b and rwkv6-3b on the (1 x 1) mesh: full width, cut to
     # `MESH_LAYERS`, B 4 x S 4096 as their train phases
     mesh_hybrid_cfg = dataclasses.replace(hybrid_cfg, n_layers=MESH_LAYERS)
@@ -2473,7 +2507,7 @@ def main() -> int:
         # phase, and train_moe runs XOR, quantize and dequantize on the
         # same leaves without a mesh
         "train_mesh_moe": (lambda: phase_train_mesh_family(
-            train_moe_cfg, train_moe_rc, root, report["train_mesh_moe"],
+            train_moe_cfg, mesh_moe_rc, root, report["train_mesh_moe"],
             "train_mesh_moe", 4, (2,),
             want=report["train_moe"]["losses"][:4]), ("checksum",)),
         "train_mesh_hybrid": (lambda: phase_train_mesh_family(
@@ -2493,7 +2527,7 @@ def main() -> int:
         # as train_mesh_moe: one full ~21 GB image, and train_vision runs
         # XOR, quantize and dequantize on the same leaves without a mesh
         "train_mesh_vision": (lambda: phase_train_mesh_family(
-            train_vision_cfg, train_vision_rc, root,
+            train_vision_cfg, mesh_vision_rc, root,
             report["train_mesh_vision"], "train_mesh_vision", 4, (2,),
             want=report["train_vision"]["losses"][:4]), ("checksum",)),
         # serving on the mesh, last: dense, MoE, hybrid and rwkv held to
@@ -2581,13 +2615,13 @@ def main() -> int:
         f"({peaks['resume'] / 2**30:.2f} GiB), int8 {peaks['int8']} bytes "
         f"({peaks['int8'] / 2**30:.2f} GiB) [{card}]")
     for name, c, r in (("train_mesh", cfg, rc),
-                       ("train_mesh_moe", train_moe_cfg, train_moe_rc),
+                       ("train_mesh_moe", train_moe_cfg, mesh_moe_rc),
                        ("train_mesh_hybrid", mesh_hybrid_cfg, mesh_hybrid_rc),
                        ("train_mesh_rwkv", mesh_rwkv_cfg, mesh_rwkv_rc),
                        ("train_mesh_whisper", mesh_whisper_cfg,
                         mesh_whisper_rc),
                        ("train_mesh_vision", train_vision_cfg,
-                        train_vision_rc)):
+                        mesh_vision_rc)):
         report_train_mesh_family(name, c, r, report[name], peaks[name],
                                  wall[name], card)
     for name, c, r, b, free in (

@@ -19,11 +19,14 @@ over (B, K) that reads its operands where they lie.
 """
 from __future__ import annotations
 
+import functools
+import itertools
+import math
+
 import torch
 import torch.distributed as dist
 
-from repro_torch.models.layers import (_dense_init, apply_rope,
-                                       hold_placements, pad_dim)
+from repro_torch.models.layers import _dense_init, apply_rope, pad_dim
 from repro_torch.models.remat import saved_result
 from repro_torch.sharding.rules import on_local_shards
 
@@ -99,27 +102,117 @@ def out_proj(p, o):
 def _group(q, n_kv: int):
     """(B,S,H,hd) -> (B,S,K,G,hd) grouped query heads."""
     B, S, H, hd = q.shape
-    if hasattr(q, "device_mesh"):
-        q = _whole_groups(q, n_kv)
     return q.reshape(B, S, n_kv, H // n_kv, hd)
 
 
-def _whole_groups(q, n_kv: int):
-    """A DTensor q (B,S,H,hd) whose heads are split over more mesh ranks
-    than the K groups can follow (K not divisible by their count): those
-    mesh dims are replicated, so the reshape to (B,S,K,G,hd) splits only
-    whole groups (e.g. H 4 over a "model" axis of 4 with K 2)."""
-    from torch.distributed.tensor import Replicate
+def _kv_of_heads(h0: int, n: int, group: int):
+    """The KV head of each run of the query heads h0..h0+n-1, where a KV
+    head serves `group` consecutive query heads: runs of gcd(n, group)
+    heads, each inside one group (a whole group where the heads are
+    whole groups), so that grouping the n heads by the runs is a
+    reshape."""
+    s = math.gcd(n, group)
+    return [(h0 + j * s) // group for j in range(n // s)]
+
+
+def _pick_heads(x, idx, dim: int = 2):
+    """x with its heads dim `dim` (K) cut to the heads `idx` (a
+    non-decreasing list), in order: each head's run of repeats is one
+    expanded view, so the backward sums a run in a fixed order (an
+    indexed gather's backward adds repeats with atomics on CUDA)."""
+    parts = []
+    for k, run in itertools.groupby(idx):
+        part = x.narrow(dim, k, 1)
+        shape = list(part.shape)
+        shape[dim] = len(list(run))
+        parts.append(part.expand(shape))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def _head_range(x, dims, dim: int = 2):
+    """(first head, heads) of this rank's block of DTensor `x`'s heads
+    dim `dim`, split evenly over the mesh dims `dims` in mesh order."""
+    mesh = x.device_mesh
+    lo, n = 0, x.shape[dim]
+    for i in dims:
+        n //= mesh.size(i)
+        lo += mesh.get_local_rank(i) * n
+    return lo, n
+
+
+def kv_for_query_heads(p):
+    """Attention params `p` whose K/V projections (`wk`, `wv`, and `bk`,
+    `bv`) are cut, on each rank, to the KV heads of its own query heads,
+    where the query heads split over mesh ranks that the K groups do not
+    divide (K replicated there): each becomes a DTensor of (d, n * J,
+    hd) split over those n ranks, rank r's J heads being the KV head of
+    each run of its query heads (`_kv_of_heads`), so the projections
+    make only the K/V its heads read, as the reference's partitioner
+    does, and `_on_mesh` then finds whole groups on every rank.  Each
+    weight's gradient is the partial sum of the ranks' picks.  For
+    training: a prefill keeps the K/V of every head (its caches), and
+    without such a split `p` is returned as it is."""
+    wq = p["wq"]
+    if not hasattr(wq, "device_mesh"):
+        return p
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = wq.device_mesh
+    heads = [i for i, pl in enumerate(wq.placements) if pl == Shard(1)]
+    n, H, K = (math.prod(mesh.size(i) for i in heads), wq.shape[1],
+               p["wk"].shape[1])
+    if K % n == 0 or H % n:
+        return p
+    idx = _kv_of_heads(*_head_range(wq, heads, dim=1), H // K)
+
+    def pick(w, dim):
+        pl = tuple(Replicate() if i in heads else q
+                   for i, q in enumerate(w.placements))
+        out = tuple(Shard(dim) if i in heads else q for i, q in enumerate(pl))
+        return on_local_shards(lambda w: _pick_heads(w, idx, dim), (w,),
+                               (pl,), out)
+
+    return dict(p, **{k: pick(p[k], 1 if k[0] == "w" else 0)
+                      for k in ("wk", "wv", "bk", "bv") if k in p})
+
+
+def _on_mesh(fn, q, k, v):
+    """`fn(q, k, v)` (an attention over plain tensors: q (B,S,H,hd), k, v
+    (B,T,K,hd) -> (B,S,H,hd)) of DTensors, on each rank's local shards.
+    q is split on its batch and query heads where it is, and replicated
+    on any other mesh dim; k and v alike on the batch, and on the heads
+    where the ranks that split the query heads split the K groups too
+    (each rank then holds whole groups).  Where they do not (qwen2-0.5b's
+    2 KV heads over a "model" axis of 16, hymba's 6 over 16), k and v
+    stay whole on those dims and each rank picks the KV heads of its own
+    query heads [h0, h1) (`_kv_of_heads`, `_pick_heads`): every rank
+    attends only its own heads, as the reference's partitioner splits
+    the (H) -> (K, G) reshape over both factors where the heads of a
+    rank lie in one group.  A rank's heads that straddle two groups
+    (hymba's 3 a rank with groups of 8) are split too, where the
+    reference's partitioner runs every head on each rank.  k and v then
+    get their gradient as a partial sum over those ranks
+    (`on_local_shards`).  Training has cut the K/V projections to each
+    rank's heads first (`kv_for_query_heads`), so there the groups are
+    whole.  DTensor would otherwise plan a sharding for each op of each
+    block shape (~25 s of the first step on a (2 x 2) CPU mesh)."""
+    from torch.distributed.tensor import Replicate, Shard
 
     mesh = q.device_mesh
-    split = [i for i, p in enumerate(q.placements) if p.is_shard(2)]
-    n = 1
-    for i in split:
-        n *= mesh.size(i)
-    if n_kv % n == 0:
-        return q
-    return q.redistribute(mesh, [Replicate() if i in split else p
-                                 for i, p in enumerate(q.placements)])
+    heads = [i for i, p in enumerate(q.placements) if p == Shard(2)]
+    n, H, K = math.prod(mesh.size(i) for i in heads), q.shape[2], k.shape[2]
+    if H % n:
+        heads, n = [], 1            # an uneven split: whole heads
+    q_pl = tuple(p if p == Shard(0) or i in heads else Replicate()
+                 for i, p in enumerate(q.placements))
+    whole = K % n == 0
+    kv_pl = tuple(p if p == Shard(0) or whole else Replicate() for p in q_pl)
+    local = fn
+    if not whole:
+        idx = _kv_of_heads(*_head_range(q, heads), H // K)
+        local = lambda q, k, v: fn(q, _pick_heads(k, idx),
+                                   _pick_heads(v, idx))
+    return on_local_shards(local, (q, k, v), (q_pl, kv_pl, kv_pl), q_pl)
 
 
 def _scale(q):
@@ -149,40 +242,14 @@ def _block(qh, start: int, c: int, kh, vh, keep):
     q = qh[:, :, start:start + c].reshape(B, K, c * G, hd)
     if keep is not None:
         keep = keep[:, None, :].expand(c, G, keep.shape[1]).reshape(c * G, -1)
-    return _attend(q, kh, vh, keep).reshape(B, K, c, G, hd)
-
-
-def _attend(q, k, v, keep):
-    """`_Attend` of one block.  On a mesh (DTensor inputs) it runs on
-    each rank's own (B, K) block: a block's attention is independent
-    across batch rows and KV heads, so q, k and v are placed alike,
-    split at most on those two dims, and the local tensors go through
-    the same ops as without a mesh (DTensor would otherwise plan a
-    sharding for each op of each block shape, ~25 s of the first step on
-    a (2 x 2) CPU mesh)."""
-    if not hasattr(q, "device_mesh"):
-        return _Attend.apply(q, k, v, keep)
-    from torch.distributed.tensor import Replicate, Shard
-
-    pl = tuple(p if type(p) is Shard and p.dim in (0, 1) else Replicate()
-               for p in q.placements)
-    return on_local_shards(lambda q, k, v: _Attend.apply(q, k, v, keep),
-                           (q, k, v), (pl, pl, pl), pl)
+    return _Attend.apply(q, kh, vh, keep).reshape(B, K, c, G, hd)
 
 
 def _heads_last(blocks):
-    """(B,K,c,G,hd) blocks in query order -> (B,S,H,hd).  On a mesh the
-    gradient keeps the output's placements: the output projection's
-    backward would split its heads over "model" as the weights are,
-    which the view back to (K, G) cannot take where the K groups do not
-    divide over those ranks (`_whole_groups`; qwen2-0.5b's 2 KV heads
-    on the production mesh's 16)."""
+    """(B,K,c,G,hd) blocks in query order -> (B,S,H,hd)."""
     o = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=2)
     B, K, S, G, hd = o.shape
-    o = o.permute(0, 2, 1, 3, 4).reshape(B, S, K * G, hd)
-    if hasattr(o, "device_mesh"):
-        o = hold_placements(o, o.device_mesh, o.placements)
-    return o
+    return o.permute(0, 2, 1, 3, 4).reshape(B, S, K * G, hd)
 
 
 def _scores(q, k, keep):
@@ -249,7 +316,11 @@ def flash_attention(q, k, v, *, causal: bool, chunk: int = 128):
     0): the reference's online softmax over key blocks is, in exact
     arithmetic, this single pass over every key of a query row.  As
     there, q is scaled in its own dtype.  Memory O(B * chunk * H * T)
-    for the scores, forward and backward."""
+    for the scores, forward and backward.  On a mesh (DTensors) it runs
+    on local shards (`_on_mesh`)."""
+    if hasattr(q, "device_mesh"):
+        return _on_mesh(functools.partial(flash_attention, causal=causal,
+                                          chunk=chunk), q, k, v)
     S, T = q.shape[1], k.shape[1]
     qh, kh, vh = _heads_first(q, k, v)
     chunk = max(1, min(chunk, S))
@@ -284,7 +355,12 @@ def _swa_mask(start: int, window: int, chunk: int, span: int, device):
 def sliding_window_attention(q, k, v, *, window: int, chunk: int = 128):
     """Causal SWA: O(S * window) compute, O(chunk * (window + chunk))
     scores per block.  k/v are padded by `window` in front; block i of
-    queries attends to its `window + chunk` key span."""
+    queries attends to its `window + chunk` key span.  On a mesh
+    (DTensors) it runs on local shards (`_on_mesh`)."""
+    if hasattr(q, "device_mesh"):
+        return _on_mesh(functools.partial(sliding_window_attention,
+                                          window=window, chunk=chunk),
+                        q, k, v)
     S = q.shape[1]
     chunk = _fit_chunk(S, chunk)
     span = window + chunk
@@ -359,25 +435,38 @@ def _decode_attend(q, k_cache, v_cache, pos: int, window: int, T: int,
 def _decode_attention_on_mesh(q, k_cache, v_cache, pos: int, window: int):
     """`decode_attention` of DTensors on local shards: q is placed as the
     caches (both alike, by the decode state's specs) on their batch and
-    KV-head dims (whole groups of query heads
-    follow their KV head), and each rank attends over its own cache
-    slots, the softmax and the value sum reduced over the ranks that
-    split the time dim (`_decode_attend`).  DTensor's own einsum here
+    KV-head dims (whole groups of query heads follow their KV head), and
+    each rank attends over its own cache slots, the softmax and the
+    value sum reduced over the ranks that split the time dim
+    (`_decode_attend`).  Where the caches' KV heads do not divide over
+    the ranks that split q's heads, and those ranks hold the caches
+    whole, q keeps its head split and each rank picks the KV heads of its
+    own heads, as in training (`_on_mesh`).  DTensor's own einsum here
     merges the batch and head dims in a view, which the card's torch
     (2.11) cannot plan where both are sharded (ROADMAP.md section C,
     "DTensor ops on local shards")."""
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
     mesh = k_cache.device_mesh
     cache_pl = tuple(k_cache.placements)
-    q_pl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate()
-                 for p in cache_pl)
+    heads = [] if any(p.is_shard(2) for p in cache_pl) else [
+        i for i, (p, c) in enumerate(zip(q.placements, cache_pl))
+        if p == Shard(2) and c == Replicate()]
+    if q.shape[2] % math.prod(mesh.size(i) for i in heads):
+        heads = []
+    q_pl = tuple(p if p.is_shard(0) or p.is_shard(2) else
+                 Shard(2) if i in heads else Replicate()
+                 for i, p in enumerate(cache_pl))
     start, _ = _time_range(k_cache)
     groups = [mesh.get_group(i) for i, p in enumerate(cache_pl)
               if p.is_shard(1) and mesh.size(i) > 1]
-    o = _decode_attend(q.redistribute(mesh, q_pl).to_local(),
-                       k_cache.to_local(), v_cache.to_local(), pos, window,
-                       k_cache.shape[1], start, groups)
+    q = q.redistribute(mesh, q_pl)
+    k, v = k_cache.to_local(), v_cache.to_local()
+    if heads:
+        idx = _kv_of_heads(*_head_range(q, heads), q.shape[2] // k.shape[2])
+        k, v = _pick_heads(k, idx), _pick_heads(v, idx)
+    o = _decode_attend(q.to_local(), k, v, pos, window, k_cache.shape[1],
+                       start, groups)
     return DTensor.from_local(o, mesh, q_pl, run_check=False)
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _dense_init, pad_dim
+from repro_torch.models.layers import _dense_init, hold_placements, pad_dim
 from repro_torch.models.linear_attention import (
     chunked_linear_attention,
     linear_attention_step,
@@ -77,6 +77,22 @@ def _causal_conv(xi, w, b):
     return out + b
 
 
+def _held(y):
+    """A projection `y` of the inner channels, on a mesh (a DTensor
+    partial over "model", which splits them) reduced, with its gradient
+    placed as `y` is before the projection's backward: DTensor may leave
+    that gradient split on the sequence over "model", which the
+    projection's backward cannot flatten with the batch (hymba-1.5b x
+    train_4k on 2x16x16, in the dry-run).  Plain tensors pass as they
+    are."""
+    if not hasattr(y, "device_mesh"):
+        return y
+    from torch.distributed.tensor import Replicate
+
+    return hold_placements(y, y.device_mesh, [
+        Replicate() if q.is_partial() else q for q in y.placements])
+
+
 def _ssm_inputs(p, xc, dtype):
     """Shared projection math. xc: (B, S, d_in) post-conv activations.
 
@@ -85,11 +101,11 @@ def _ssm_inputs(p, xc, dtype):
     rounding of a value over 20."""
     n_heads = p["wdt"].shape[1]
     N = p["wB"].shape[1]
-    Bt = torch.einsum("bsd,dn->bsn", xc, p["wB"].to(dtype))
-    Ct = torch.einsum("bsd,dn->bsn", xc, p["wC"].to(dtype))
+    Bt = _held(torch.einsum("bsd,dn->bsn", xc, p["wB"].to(dtype)))
+    Ct = _held(torch.einsum("bsd,dn->bsn", xc, p["wC"].to(dtype)))
     dt = F.softplus(
-        torch.einsum("bsd,dh->bsh", xc, p["wdt"].to(dtype)).to(torch.float32)
-        + p["dt_bias"])
+        _held(torch.einsum("bsd,dh->bsh", xc, p["wdt"].to(dtype))).to(
+            torch.float32) + p["dt_bias"])
     lw = -dt * torch.exp(p["A_log"])                     # (B,S,H) log decay
     q = Ct[:, :, None, :].expand(*dt.shape, N)
     k = Bt[:, :, None, :] * dt[..., None].to(dtype)

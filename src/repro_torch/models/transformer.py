@@ -60,16 +60,26 @@ values do not change, only placement (an rwkv block has no other site,
 as in the reference; the MoE dispatch has its four,
 `repro_torch.models.moe`).  The frames or patches arrive split over the
 data axes like the tokens; cross attention places its queries and the
-encoder's (or the patches') keys alike, split on batch and KV heads
-only, so every rank attends over all Te keys; the encoder output's
-gradient sums every decoder block's, each a DTensor partial sum over
-"model" where the K/V projections split heads.  These run on each
-rank's local shards, each for a reason a real run showed (ROADMAP.md
-section C): the embedding (`layers._MeshEmbedGather`), each attention
-block, self or cross (`attention._attend`), the MoE expert MLP
-(`moe._experts`) and the chunked linear-attention engine of the hybrid
-and rwkv blocks (`linear_attention._on_local_shards`); every other op
-propagates its DTensor sharding.
+encoder's (or the patches') keys alike on the batch, every rank
+attending over all Te keys with its own query heads; the encoder
+output's gradient sums every decoder block's, each a DTensor partial
+sum over "model" where the K/V projections split heads.  Where the
+query heads split over "model" more finely than the K groups, each rank
+projects and attends only the KV heads of its own query heads
+(`attention.kv_for_query_heads`; a prefill keeps every head's K/V for
+its caches and picks them in the attention).  Under FSDP (`rc.fsdp`:
+params split over the data axes too) a stack whose layer dim is split
+moves that split to another dim once a step, and each block gathers
+its own layer's leaves over the data axes at its use, inside its remat,
+as the final norms and the head are gathered at theirs
+(`sharding.rules.off_lead_dims`, `gather_over_data`); the gradients come
+back reduced onto the shards.  These run on each rank's local shards,
+each for a reason a real run showed (ROADMAP.md section C): the
+embedding (`layers._MeshEmbedGather`), each attention, self or cross
+(`attention._on_mesh`), the MoE expert MLP (`moe._experts`) and the
+chunked linear-attention engine of the hybrid and rwkv blocks
+(`linear_attention._on_local_shards`); every other op propagates its
+DTensor sharding.
 """
 from __future__ import annotations
 
@@ -87,7 +97,8 @@ from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.remat import checkpoint_kwargs, checkpoint_name
-from repro_torch.sharding.rules import constrain
+from repro_torch.sharding.rules import (constrain, gather_over_data,
+                                       off_lead_dims)
 from repro_torch.tree import tree_map
 
 
@@ -203,7 +214,12 @@ def init_params(cfg: ModelConfig, generator, device) -> Tuple[Dict, Dict]:
 
 
 def _self_attention_seq(cfg: ModelConfig, rc: RunConfig, p, h, positions,
-                        causal: bool):
+                        causal: bool, keep_kv: bool = True):
+    """-> (out, (k, v)); without `keep_kv` (training) the K/V of a mesh
+    rank are only those its query heads read
+    (`attn.kv_for_query_heads`)."""
+    if not keep_kv:
+        p = attn.kv_for_query_heads(p)
     q, k, v = attn.qkv_proj(p, h, cfg.rope_theta, positions)
     S = h.shape[1]
     if cfg.sliding_window and causal and cfg.sliding_window < S:
@@ -233,9 +249,12 @@ def _to_stream(y, rules):
         ("batch", "seq", None), y.shape).placements)
 
 
-def _cross_attention_seq(cfg, rc, p, h, enc_out):
+def _cross_attention_seq(cfg, rc, p, h, enc_out, keep_kv: bool = True):
     """Decoder queries (B,S) against the encoder's keys (B,Te): no RoPE,
-    no bias, non-causal.  Returns (out, (k, v)), k/v (B,Te,K,hd)."""
+    no bias, non-causal.  Returns (out, (k, v)), k/v (B,Te,K,hd) with
+    `keep_kv`, else as `_self_attention_seq`'s."""
+    if not keep_kv:
+        p = attn.kv_for_query_heads(p)
     dt = h.dtype
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(dt))
@@ -256,15 +275,16 @@ def _ffn(cfg, rules, p, h):
 
 
 def _mixer_block_seq(cfg, rc, rules, p, x, positions, enc_out=None,
-                     causal=True):
+                     causal=True, keep_kv=True):
     """One dense/MoE/hybrid block over a full sequence; a block with
     `xattn` attends to `enc_out` (B,Te,d) after self-attention.
 
-    Returns (x, aux, cache): cache holds what prefill must keep."""
+    Returns (x, aux, cache): cache holds what prefill must keep (with
+    `keep_kv`: the K/V of every head)."""
     cache = {}
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     a_out, (k, v) = _self_attention_seq(cfg, rc, p["attn"], h, positions,
-                                        causal)
+                                        causal, keep_kv)
     if cfg.ssm_state:
         m_out, cache["ssm"], cache["conv"] = mam.mamba_apply(
             p["mamba"], h, chunk=rc.la_chunk)
@@ -278,7 +298,7 @@ def _mixer_block_seq(cfg, rc, rules, p, x, positions, enc_out=None,
     if "xattn" in p and enc_out is not None:
         hx = L.rms_norm(x, p["lnx"], cfg.norm_eps)
         x_out, (cache["xk"], cache["xv"]) = _cross_attention_seq(
-            cfg, rc, p["xattn"], hx, enc_out)
+            cfg, rc, p["xattn"], hx, enc_out, keep_kv)
         x = x + _to_stream(x_out, rules)
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _ffn(cfg, rules, p, h2)
@@ -328,16 +348,17 @@ def _encode(params, cfg, rc, rules, frames):
     x = frames + L.sinusoidal_positions(Te, cfg.d_model,
                                         frames.device).to(frames.dtype)
     positions = torch.arange(Te, device=frames.device)
-    blocks = _unbind_layers(params["enc_blocks"])
+    blocks = _unbind_layers(off_lead_dims(params["enc_blocks"]))
 
     def block(x, p):
         x = constrain(x, rules, ("batch", "seq", None))
-        return _mixer_block_seq(cfg, rc, rules, p, x, positions, None,
-                                causal=False)[0]
+        return _mixer_block_seq(cfg, rc, rules, gather_over_data(p), x,
+                                positions, None, causal=False,
+                                keep_kv=False)[0]
 
     for i in range(cfg.n_enc_layers):
         x = _remat(rc, block, x, _layer_params(blocks, i))
-    return L.rms_norm(x, params["enc_ln_f"], cfg.norm_eps)
+    return L.rms_norm(x, gather_over_data(params["enc_ln_f"]), cfg.norm_eps)
 
 
 def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
@@ -368,11 +389,12 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
 
     def block(x, p, enc_out):
         x = constrain(x, rules, ("batch", "seq", None))
+        p = gather_over_data(p)
         if cfg.rwkv:
             x, aux, cache = _rwkv_block_seq(cfg, rc, rules, p, x)
         else:
             x, aux, cache = _mixer_block_seq(cfg, rc, rules, p, x, positions,
-                                             enc_out)
+                                             enc_out, keep_kv=want_cache)
         return x, aux.get("moe_aux", zero), cache
 
     moe_aux = zero
@@ -386,7 +408,7 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
             x, a = _remat(rc, lambda x, p, e: block(x, p, e)[:2], x, p, e)
         if not group_self:      # the reference counts no self block's aux
             moe_aux = moe_aux + a
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    x = L.rms_norm(x, gather_over_data(params["ln_f"]), cfg.norm_eps)
     stacked = None
     if want_cache and cfg.cross_attn_every:
         # a cross block's own K/V are not kept, as in the reference
@@ -408,15 +430,18 @@ def _layer_order(params, cfg):
     it sees no patches, and its MoE aux is not counted (the reference's
     `self_body`).  Each stacked leaf is unbound once: its backward stacks
     the layer grads in one pass instead of one full-size scatter a
-    layer."""
+    layer.  Under FSDP a stack whose layer dim is split over the data
+    axes first moves that split to another dim (`off_lead_dims`), and
+    each block gathers its own layer's leaves at its use
+    (`gather_over_data`, inside the block's remat)."""
     if not cfg.cross_attn_every:
-        blocks = _unbind_layers(params["blocks"])
+        blocks = _unbind_layers(off_lead_dims(params["blocks"]))
         return [(_layer_params(blocks, i), False)
                 for i in range(cfg.n_layers)]
     per = cfg.cross_attn_every - 1
-    selfs = _unbind_layers(tree_map(lambda t: t.flatten(0, 1),
-                                    params["self_blocks"]))
-    crosses = _unbind_layers(params["cross_blocks"])
+    selfs = _unbind_layers(tree_map(lambda t: t.flatten(0, 1), off_lead_dims(
+        params["self_blocks"], 2)))
+    crosses = _unbind_layers(off_lead_dims(params["cross_blocks"]))
     order = []
     for g in range(cfg.n_layers // cfg.cross_attn_every):
         order += [(_layer_params(selfs, g * per + j), True)
@@ -435,7 +460,7 @@ def forward_loss(params, cfg, rc, rules, batch):
     """Next-token cross entropy (sequence-chunked; no (B,S,V) tensor),
     plus 0.01 * the mean MoE load-balance loss for MoE configs."""
     x, aux, _ = forward(params, cfg, rc, rules, batch)
-    head = L.head_matrix(params["embed"])
+    head = gather_over_data(L.head_matrix(params["embed"]))
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(batch["labels"].shape, dtype=torch.float32,
@@ -598,7 +623,7 @@ def _decode_rwkv_block(cfg, p, x, lcache):
 
 
 def _logits(params, cfg, x):
-    head = L.head_matrix(params["embed"])
+    head = gather_over_data(L.head_matrix(params["embed"]))
     logits = torch.einsum("...d,dv->...v", x, head.to(x.dtype))
     vmask = L.vocab_logit_mask(head.shape[-1], cfg.vocab_size, x.device)
     if vmask is not None:
@@ -620,26 +645,29 @@ def decode_step(params, cfg: ModelConfig, rc: RunConfig, rules, state, token):
     pos = int(state["pos"])              # the step's one host copy of pos
     caches = {key: c if key in _READ_ONLY else c.clone()
               for key, c in state["layers"].items()}
+    # under FSDP each layer is gathered at its use, as in `forward`
+    layer = lambda blocks, i: gather_over_data(_layer_params(blocks, i))
     if cfg.cross_attn_every:
         per = cfg.cross_attn_every - 1
+        selfs = off_lead_dims(params["self_blocks"], 2)
+        crosses = off_lead_dims(params["cross_blocks"])
         for g in range(cfg.n_layers // cfg.cross_attn_every):
             for j in range(per):
                 x = _decode_mixer_block(
-                    cfg, rc, rules, _layer_params(params["self_blocks"],
-                                                  (g, j)),
-                    x, {"k": caches["k"][g, j], "v": caches["v"][g, j]}, pos)
+                    cfg, rc, rules, layer(selfs, (g, j)), x,
+                    {"k": caches["k"][g, j], "v": caches["v"][g, j]}, pos)
             x = _decode_vision_cross_block(
-                cfg, _layer_params(params["cross_blocks"], g), x,
-                caches["xk"][g], caches["xv"][g])
+                cfg, layer(crosses, g), x, caches["xk"][g], caches["xv"][g])
     else:
+        blocks = off_lead_dims(params["blocks"])
         for i in range(cfg.n_layers):
-            p = _layer_params(params["blocks"], i)
+            p = layer(blocks, i)
             lcache = {key: c[i] for key, c in caches.items()}
             if cfg.rwkv:
                 x = _decode_rwkv_block(cfg, p, x, lcache)
             else:
                 x = _decode_mixer_block(cfg, rc, rules, p, x, lcache, pos)
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    x = L.rms_norm(x, gather_over_data(params["ln_f"]), cfg.norm_eps)
     return _logits(params, cfg, x), {"pos": state["pos"] + 1,
                                      "layers": caches}
 

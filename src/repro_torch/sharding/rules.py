@@ -221,6 +221,66 @@ def constrain(x, rules: Optional[ShardingRules], logical):
     return x.redistribute(rules.mesh, want)
 
 
+def _data_dims(x) -> Tuple[int, ...]:
+    """The indices of the data axes (`batch_axes`) of DTensor `x`'s
+    mesh."""
+    names = tuple(x.device_mesh.mesh_dim_names)
+    return tuple(names.index(a) for a in batch_axes(x.device_mesh))
+
+
+def gather_over_data(tree):
+    """`tree` with every DTensor leaf that is split over the data axes
+    ("pod", "data") gathered whole over them, the rest of its placement
+    kept: an FSDP leaf in its spec without the data shard, at its use,
+    as the reference's partitioner gathers it.  The redistribution is
+    autograd's, so the gradient comes back reduced onto the shards (a
+    reduce-scatter of the partial sums over the data ranks)."""
+    from torch.distributed.tensor import Replicate
+
+    def gather(x):
+        if not hasattr(x, "device_mesh"):
+            return x
+        pl = tuple(x.placements)
+        data = _data_dims(x)
+        want = tuple(Replicate() if i in data else p
+                     for i, p in enumerate(pl))
+        return x if want == pl else x.redistribute(x.device_mesh, want)
+
+    return tree_map(gather, tree)
+
+
+def off_lead_dims(tree, lead: int = 1):
+    """`tree` with every DTensor leaf whose first `lead` dims (a stack's
+    layer dims) are split over data axes redistributed so that those
+    axes split another dim: the first one past `lead` that no mesh dim
+    splits and that their size divides (else they are replicated).  It
+    holds as many bytes a rank as before, and the stack can then be
+    unbound into layers, each gathered at its use (`gather_over_data`);
+    DTensor cannot unbind a split dim.  One all-to-all of each such
+    leaf; the others are returned as they are."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def move(x):
+        if not hasattr(x, "device_mesh"):
+            return x
+        pl = tuple(x.placements)
+        data = [i for i in _data_dims(x)
+                if isinstance(pl[i], Shard) and pl[i].dim < lead]
+        if not data:
+            return x
+        n = 1
+        for i in data:
+            n *= x.device_mesh.size(i)
+        taken = {p.dim for p in pl if isinstance(p, Shard)}
+        to = next((d for d in range(lead, x.ndim)
+                   if d not in taken and x.shape[d] % n == 0), None)
+        want = tuple((Replicate() if to is None else Shard(to))
+                     if i in data else p for i, p in enumerate(pl))
+        return x.redistribute(x.device_mesh, want)
+
+    return tree_map(move, tree)
+
+
 def on_local_shards(fn, args, want, out):
     """`fn(*local shards of args)` as a DTensor (a tuple of them): each
     DTensor arg is first placed as `want` (one placement tuple for each;

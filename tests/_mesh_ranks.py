@@ -32,17 +32,35 @@ def shape_of(arch: str):
     return MOE_SHAPE if arch.startswith("mixtral") else SHAPE
 
 
+# further cuts of a reduced config, by the tag after "@" in an arch
+# (config fields, and "batch" for the train shape's batch):
+# "kv1": one KV head (so K divides no "model" axis) and 3 layers (so an
+# FSDP data axis of 2 splits d, not the layer dim); "b2": a batch of 2
+# (one 512-token MoE dispatch group a data rank of 2)
+VARIANTS = {"kv1": {"n_kv_heads": 1, "n_layers": 3}, "b2": {"batch": 2}}
+
+
 def reduced(arch: str = "qwen2-0.5b"):
     """(cfg, rc) of reduced `arch` with heads and vocabulary padded to 2,
-    the reference's elastic-restart config.  `arch` may end in ":ep" or
-    ":tp", the MoE sharding mode (default "ep")."""
+    the reference's elastic-restart config.  `arch` is
+    "name[:mode][@variant][+fsdp]": the MoE sharding mode ":ep" or ":tp"
+    (default "ep"), a further cut of `VARIANTS`, and "+fsdp" for params
+    sharded over "data" too (the reference's `fsdp`)."""
+    import dataclasses
+
     from repro_torch.configs import ARCHS, reduced_config
     from repro_torch.configs.base import RunConfig, ShapeConfig
 
+    arch, fsdp, _ = arch.partition("+fsdp")
+    arch, _, variant = arch.partition("@")
     name, _, mode = arch.partition(":")
-    cfg = reduced_config(ARCHS[name], pad_to=2)
-    rc = RunConfig(model=cfg, shape=ShapeConfig(*shape_of(name)),
-                   loss_chunk=32, attn_chunk=16, moe_mode=mode or "ep")
+    over = dict(VARIANTS.get(variant, {}))
+    shape, S, B, kind = shape_of(name)
+    B = over.pop("batch", B)
+    cfg = dataclasses.replace(reduced_config(ARCHS[name], pad_to=2), **over)
+    rc = RunConfig(model=cfg, shape=ShapeConfig(shape, S, B, kind),
+                   loss_chunk=32, attn_chunk=16, moe_mode=mode or "ep",
+                   fsdp=bool(fsdp))
     return cfg, rc
 
 
@@ -103,9 +121,11 @@ def _shapes(arg: str):
 PLAN = {"qwen2-0.5b": (8, 4)}
 
 # archs whose gradient check also runs in float64 compute: the reduced
-# encoder-decoder and vision models amplify one rounding of a block's
-# output far more than the other families (tests/test_torch_mesh_xattn.py)
-F64_GRADS = ("whisper-large-v3", "llama-3.2-vision-11b")
+# encoder-decoder and vision models, and reduced qwen2-0.5b with one KV
+# head, amplify one rounding of a block's output far more than the other
+# families (tests/test_torch_mesh_xattn.py, tools/probe_grad_noise.py)
+F64_GRADS = ("whisper-large-v3", "llama-3.2-vision-11b",
+             "qwen2-0.5b@kv1+fsdp")
 
 
 def train_and_restore(rank: int, d: str, arg: str, arch="qwen2-0.5b"):
@@ -161,6 +181,38 @@ def train_and_restore(rank: int, d: str, arg: str, arch="qwen2-0.5b"):
     return out
 
 
+# the steps of `fsdp_train`: an image at step 2 and one step after it
+FSDP_STEPS = 3
+
+
+def fsdp_train(rank: int, d: str, arg: str, arch: str):
+    """`arch` (with "+fsdp") on the first mesh of `arg`: step 0's float32
+    gradients against the mesh-free ones (`_grads`; for `F64_GRADS` in
+    float64 too), `FSDP_STEPS` steps with an image at step 2 (XOR-delta
+    params) in `d`/mesh, then a runtime on the same mesh restores step 2
+    and runs the steps after it again.  Losses are lists; "*_aux" the
+    MoE load-balance losses beside them."""
+    mesh = _mesh(_shapes(arg)[0])
+    d = os.path.join(d, "mesh")
+    rt = _runtime(d, mesh, arch, ckpt_every_steps=2, delta_params=True)
+    rt.initialize()
+    out = {"f32_grads": _grads(rt, arch)}
+    if arch in F64_GRADS:
+        out["f64_grads"] = _grads(rt, arch, "float64")
+    hist = rt.run(FSDP_STEPS)
+    out["train"], out["train_aux"] = _losses(hist), _aux(hist)
+    out["images"] = rt.ckpt.steps()
+    out["state_placements"] = _placements(rt.state)
+    rt.close()
+    rt = _runtime(d, mesh, arch, delta_params=True)
+    start = rt.restore(2)
+    hist = rt.run(FSDP_STEPS - 2)
+    out["resumed"] = {"start": start, "losses": _losses(hist),
+                      "aux": _aux(hist)}
+    rt.close()
+    return out
+
+
 def _placements(state):
     """{leaf path: its DTensor placements as strings}; a leaf that is
     not a DTensor maps to None."""
@@ -180,7 +232,9 @@ def _grads(rt, arch="qwen2-0.5b", dtype="float32"):
     runtime's mesh against those of the same params without a mesh:
     {"max_rel": the largest relative difference (norm) over the leaves,
     "norm": [global norm on the mesh, without]} (`adamw.global_norm`,
-    over sharded gradients on the mesh)."""
+    over sharded gradients on the mesh), on rank 0; the other ranks
+    take part in the gathers and return None (the mesh-free pass is the
+    same on every rank)."""
     import dataclasses
 
     import torch
@@ -209,10 +263,13 @@ def _grads(rt, arch="qwen2-0.5b", dtype="float32"):
         mesh_norm = float(adamw.global_norm(
             tree_unflatten(rt.state["params"], on_mesh)).full_tensor())
     full = tree_map(lambda x: x.full_tensor(), rt.state["params"])
+    on_mesh = [g.full_tensor() for g in on_mesh]
+    if torch.distributed.get_rank() != 0:
+        return None
     plain = grads(full, batch, None)
     # a leaf that no token reaches (an expert given no tokens) has zero
     # gradients on both sides
-    rel = [float((a.full_tensor() - b).norm() / b.norm().clamp_min(1e-30))
+    rel = [float((a - b).norm() / b.norm().clamp_min(1e-30))
            for a, b in zip(on_mesh, plain)]
     return {"max_rel": max(rel), "rel": dict(zip(_paths(full), rel)),
             "norm": [mesh_norm,
@@ -723,6 +780,53 @@ def serve_on_mesh(rank: int, d: str, arg: str, arch: str):
     return out
 
 
+def serve_split(rank: int, d: str, arg: str, arch: str):
+    """`arch`'s serving cell (`serve_config`, float32) without
+    `kv_time_shard` on the first mesh of `arg` (so a cache's KV heads
+    that do not divide "model" stay whole there while the query heads
+    split; params placed by `train_state_specs`, with `fsdp` if `arch`
+    sets it) and without a mesh: prefill and 4 greedy tokens, the mesh
+    fed the mesh-free run's tokens.  {"tokens_equal", "rel": each
+    step's norm-relative logits difference, "misplaced": decode-state
+    leaves not placed by `decode_state_specs`}."""
+    import torch
+
+    cfg, rc = serve_config(arch)
+    rc = dataclasses.replace(rc, kv_time_shard=False)
+    params, batch = serve_inputs(cfg, rc)
+    free = _Server(cfg, rc, params)
+    server = _Server(cfg, rc, params, _mesh(_shapes(arg)[0]))
+    want, want_state = free.start(batch)
+    got, state = server.start(batch)
+    wants, gots, bad = [want], [got], server.misplaced(state)
+    for _ in range(4):
+        tok = _greedy_tok(wants[-1])
+        want, want_state = free.step(want_state, tok)
+        got, state = server.step(state, tok)
+        wants.append(want)
+        gots.append(got)
+        bad += server.misplaced(state)
+    return {"tokens_equal": all(torch.equal(_greedy_tok(a), _greedy_tok(b))
+                                for a, b in zip(gots, wants)),
+            "rel": _vs(gots, wants)["rel"], "misplaced": bad[:20]}
+
+
+def prefill_dtypes(rank: int, d: str, arg: str):
+    """Reduced qwen2-0.5b's serving cell (`serve_config`) prefilled on
+    the first mesh of `arg` and without a mesh, in float32 and in
+    bfloat16 compute: {dtype: the norm-relative difference of the mesh's
+    gathered last-token logits from the mesh-free ones}."""
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        cfg, rc = serve_config("qwen2-0.5b", dt)
+        params, batch = serve_inputs(cfg, rc)
+        free, _ = _Server(cfg, rc, params).start(batch)
+        got, _ = _Server(cfg, rc, params, _mesh(_shapes(arg)[0])).start(
+            batch)
+        out[dt] = _rel(got, free)
+    return out
+
+
 def slot_write(rank: int, d: str, arg: str):
     """`attention.write_slot_` into a layer of a (L, B, T, K, hd) cache
     placed as `kv_time_shard` places it on a (2 x 2) mesh (batch over
@@ -809,11 +913,14 @@ def remat_on_mesh(rank: int, d: str, arg: str):
 
 
 SCENARIOS = {"train_and_restore": train_and_restore,
+             "fsdp_train": fsdp_train,
+             "serve_split": serve_split,
              "embed_on_mesh": embed_on_mesh,
              "moe_parts": moe_parts,
              "la_parts": la_parts,
              "serve_on_mesh": serve_on_mesh,
              "slot_write": slot_write,
+             "prefill_dtypes": prefill_dtypes,
              "remat_on_mesh": remat_on_mesh}
 # scenarios that take no arch: run once, before the arch loop
 ARCH_FREE = ("slot_write",)

@@ -204,6 +204,151 @@ def test_collectives_only_where_the_mesh_splits():
     assert set(four) == set(dryrun.COLLECTIVE_OPS) | {"count", "total"}
 
 
+# the reference's per-device dot FLOPs and temp bytes of its train step
+# (remat "full") on a (data, model) mesh of 4 forced host devices, for
+# each cell of a JSON list of {"mesh": [data, model], "cfg": overrides
+# of reduced qwen2-0.5b, "fsdp": bool}
+JREF_CELLS = r"""
+import dataclasses, json, sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.configs import ARCHS, reduced_config
+from repro.configs.base import RunConfig, ShapeConfig
+from repro.data.pipeline import make_batch_specs
+from repro.launch.hlo_analysis import analyze_hlo
+from repro.sharding.rules import ShardingRules
+from repro.training.step import (abstract_train_state, batch_specs,
+                                 make_train_step, train_state_specs)
+
+B, S = int(sys.argv[2]), int(sys.argv[3])
+out = []
+for cell in json.loads(sys.argv[1]):
+    data, model = cell["mesh"]
+    cfg = dataclasses.replace(reduced_config(ARCHS["qwen2-0.5b"]),
+                              **cell["cfg"])
+    shape = ShapeConfig("t", S, B, "train")
+    rc = RunConfig(model=cfg, shape=shape, fsdp=cell["fsdp"])
+    mesh = Mesh(np.array(jax.devices()[:data * model]).reshape(data, model),
+                ("data", "model"))
+    rules = ShardingRules(mesh, moe_mode=rc.moe_mode)
+    named = lambda t: jax.tree.map(lambda s: NamedSharding(mesh, s), t,
+                                   is_leaf=lambda x: isinstance(x, P))
+    state = named(train_state_specs(cfg, rc, rules))
+    fn = jax.jit(make_train_step(cfg, rc, rules),
+                 in_shardings=(state, named(batch_specs(cfg, shape, rules))),
+                 out_shardings=(state, None))
+    with mesh:
+        c = fn.lower(abstract_train_state(cfg, rc),
+                     make_batch_specs(cfg, shape, jnp.bfloat16)).compile()
+    out.append(analyze_hlo(c.as_text())["dot_flops"])
+print(json.dumps(out))
+"""
+
+# (mesh, reduced qwen2-0.5b overrides, fsdp) of the cells held to the
+# reference: FSDP on (2 x 2), its data axis on the layer dim (2 layers)
+# and on d (3); the query heads split finer than K: (1 x 4) with H 4 and
+# K 2 (each rank one head of one group), and (1 x 2) with H 6 and K 3
+# (each rank's 3 heads straddle two groups)
+SPLIT_CELLS = {"fsdp_layers": ((2, 2), {"n_layers": 2}, True),
+               "fsdp_d": ((2, 2), {"n_layers": 3}, True),
+               "heads_k2": ((1, 4), {"n_layers": 2}, False),
+               "heads_straddle": ((1, 2), {"n_layers": 2, "n_heads": 6,
+                                           "n_kv_heads": 3}, False)}
+_SPLIT_REF = {}
+
+
+def _split_ref(name: str) -> float:
+    """The reference's per-device dot FLOPs of a `SPLIT_CELLS` cell, all
+    compiled in one subprocess with 4 forced host devices."""
+    if not _SPLIT_REF:
+        cells = [{"mesh": m, "cfg": c, "fsdp": f}
+                 for m, c, f in SPLIT_CELLS.values()]
+        env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
+                   XLA_FLAGS="--xla_force_host_platform_device_count=4")
+        out = subprocess.run([sys.executable, "-c", JREF_CELLS,
+                              json.dumps(cells), str(B), str(S)], env=env,
+                             capture_output=True, text=True, timeout=600)
+        assert out.returncode == 0, out.stderr[-3000:]
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        _SPLIT_REF.update(zip(SPLIT_CELLS, got))
+    return _SPLIT_REF[name]
+
+
+def _port_cell(mesh_shape, over, fsdp):
+    """The port's dry-run of reduced qwen2-0.5b (with `over`), remat
+    "full", on a fake (data, model) mesh of `mesh_shape`."""
+    key = (mesh_shape, tuple(sorted(over.items())), fsdp)
+    if key not in _PORT:
+        cfg = dataclasses.replace(reduced_config(ARCHS["qwen2-0.5b"]),
+                                  **over)
+        shape = ShapeConfig("t", S, B, "train")
+        rc = RunConfig(model=cfg, shape=shape, fsdp=fsdp)
+        with dryrun.fake_world(mesh_shape[0] * mesh_shape[1]):
+            mesh = make_mesh(mesh_shape, ("data", "model"),
+                             device_type="cpu")
+            _PORT[key] = dryrun.dry_run(cfg, shape, rc, mesh)
+    return _PORT[key]
+
+
+@pytest.mark.parametrize("name", ["fsdp_layers", "fsdp_d", "heads_k2"])
+def test_split_mesh_matches_reference_per_device(name):
+    """FSDP gathers each layer at its use and the query heads split over
+    "model" where K does not divide it: per-device dot FLOPs within 5%
+    of the reference's (remat "full": 1.025 without a mesh, as above)."""
+    ours = _port_cell(*SPLIT_CELLS[name])["hlo"]["dot_flops"]
+    theirs = _split_ref(name)
+    print(f"{name} per device: port {ours}, reference {theirs}, "
+          f"ratio {ours / theirs:.5f}")
+    assert abs(ours / theirs - 1) < 0.05
+
+
+@pytest.mark.parametrize("layers", [2, 3])
+def test_fsdp_holds_less_than_no_fsdp(layers):
+    """The FSDP cell's per-device peak (arguments and the step's live
+    set) is below the same cell's without FSDP, at the same dot FLOPs
+    (its all-gathers: each layer's weights at their use, where ZeRO-1
+    gathers the updated params)."""
+    mesh, over, _ = SPLIT_CELLS["fsdp_layers" if layers == 2 else "fsdp_d"]
+    on, off = (_port_cell(mesh, over, f) for f in (True, False))
+    assert on["memory"]["peak_bytes"] < off["memory"]["peak_bytes"]
+    assert on["memory"]["argument_bytes"] < off["memory"]["argument_bytes"]
+    assert on["hlo"]["dot_flops"] == off["hlo"]["dot_flops"]
+    assert on["collectives"]["all-gather"] > 0
+
+
+def test_straddling_heads_do_only_their_share():
+    """(1 x 2) with H 6 and K 3: each rank's 3 query heads straddle two
+    KV groups.  The reference's partitioner runs every head's attention
+    on both ranks there (its score products are (B, 3, c, 2 x c) per
+    device, all 6 heads); the port attends only each rank's own heads,
+    so its per-device count is below the reference's and below its own
+    count with the heads whole, and one attention call on the mesh
+    counts exactly half of the same call without one."""
+    mesh, over, fsdp = SPLIT_CELLS["heads_straddle"]
+    ours = _port_cell(mesh, over, fsdp)["hlo"]["dot_flops"]
+    theirs = _split_ref("heads_straddle")
+    print(f"straddling heads per device: port {ours}, reference {theirs}, "
+          f"ratio {ours / theirs:.5f}")
+    assert ours < theirs
+
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import attention as A
+
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(B, S, h, 16, generator=gen).to(torch.bfloat16)
+               for h in (6, 3, 3))
+    free = analyze_step(A.flash_attention, q, k, v, causal=True, chunk=32)
+    with dryrun.fake_world(2):
+        m = make_mesh((1, 2), ("data", "model"), device_type="cpu")
+        args = (distribute_tensor(q, m, [Replicate(), Shard(2)]),
+                *(distribute_tensor(x, m, [Replicate(), Replicate()])
+                  for x in (k, v)))
+        split = analyze_step(A.flash_attention, *args, causal=True,
+                             chunk=32)
+    assert split["dot_flops"] * 2 == free["dot_flops"]
+
+
 JREF_RC = r"""
 import json
 from repro.configs import ARCHS, SHAPES_BY_NAME

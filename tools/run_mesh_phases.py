@@ -2,7 +2,7 @@
 """`chip_smoke.py`'s mesh phases alone, on one GPU: a short call that
 compiles and checks them before the whole smoke.
 
-    python3 tools/run_mesh_phases.py [dense] [whisper] [vision]
+    python3 tools/run_mesh_phases.py [dense] [moe] [hybrid] [whisper] [vision]
         [serve_dense] [serve_moe] [serve_hybrid] [serve_rwkv]
         [serve_whisper] [serve_vision] [remat] [dryrun]
 
@@ -10,13 +10,15 @@ It builds the kernels, then runs each phase named (whisper and vision by
 default) at the smoke's cells, on the smoke's (1 x 1) NCCL mesh.
 dense: `chip_smoke.phase_train_mesh_family` for qwen2-0.5b at the
 training cell (4 steps beside a mesh-free twin, an image at step 2, the
-int8 image).  whisper and vision: the same for
-whisper-large-v3 at full width cut to `MESH_LAYERS` in both stacks (3
-steps beside a mesh-free twin, an image at step 2, the int8 image), and
+int8 image).  moe, hybrid, whisper and vision: the same for
+Mixtral-8x7B at train_moe's cell (4 steps, one full image at step 2,
+`fsdp`), hymba-1.5b and whisper-large-v3 at full width cut to
+`MESH_LAYERS` (whisper in both stacks; 3 steps beside a mesh-free twin,
+an image at step 2, the int8 image), and
 llama-3.2-vision-11b at train_vision's cell (4 steps, one full image at
-step 2).  The smoke holds vision to train_vision's losses; here, where
-train_vision does not run, it runs its own mesh-free twin of the same 4
-steps.  serve_*: `chip_smoke.phase_serve_mesh` at the smoke's serve
+step 2, `fsdp`).  The smoke holds moe and vision to train_moe's and
+train_vision's losses; here, where those phases do not run, each runs
+its own mesh-free twin of the same 4 steps.  serve_*: `chip_smoke.phase_serve_mesh` at the smoke's serve
 mesh cells, with `kv_time_shard`; serve_dense, serve_moe, serve_hybrid
 and serve_rwkv first run their mesh-free `phase_serve`, whose logits and
 tokens the mesh run is held to, as in the smoke; serve_hybrid and
@@ -69,6 +71,7 @@ def main(argv) -> int:
     vision = dataclasses.replace(
         ARCHS["llama-3.2-vision-11b"], n_layers=smoke.VISION_LAYERS,
         cross_attn_every=smoke.VISION_LAYERS)
+    train_moe = dataclasses.replace(ARCHS["mixtral-8x7b"], n_layers=1)
     # the serve cells of `chip_smoke.main`: (cfg, rc, batch, mesh-free
     # phase first?)
     def serve(name, S):
@@ -97,12 +100,18 @@ def main(argv) -> int:
                          shape=ShapeConfig("smoke_h100", 1024, 8, "train"))
     cells = {
         "dense": (dense, dense_rc, 4, True),
+        "moe": (train_moe, RunConfig(model=train_moe, shape=ShapeConfig(
+            "train_moe_h100", smoke.MOE_SEQ, smoke.MOE_BATCH, "train"),
+            attn_chunk=128, fsdp=True), 4, False),
+        "hybrid": (hybrid, RunConfig(model=hybrid,
+                                     shape=shape("train_hybrid_h100"),
+                                     attn_chunk=128), 3, True),
         "whisper": (whisper, RunConfig(model=whisper,
                                        shape=shape("train_whisper_h100"),
                                        attn_chunk=128), 3, True),
         "vision": (vision, RunConfig(model=vision,
                                      shape=shape("train_vision_h100"),
-                                     attn_chunk=128), 4, False)}
+                                     attn_chunk=128, fsdp=True), 4, False)}
     counters = ((cops, "launches"), (dops, "launches"), (qops, "launches"),
                 (qops, "dequantize_launches"))
     root = tempfile.mkdtemp(prefix="run_mesh_phases_")
