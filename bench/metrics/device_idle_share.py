@@ -1,0 +1,8 @@
+"""Percent of the traced window in which no operation (kernel, copy or
+set) ran on the device: 100 minus the union of their intervals."""
+
+
+def read(run):
+    if run.trace is None or run.trace["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])
