@@ -1,0 +1,8 @@
+"""The mean over the window's recoveries of the host seconds of the
+program's spans "restore.decode" (each array's decode on the device)
+inside each "restore"."""
+from bench.program_trace import restore_host_s
+
+
+def read(run):
+    return restore_host_s(run, "restore.decode")

@@ -1,0 +1,8 @@
+"""The mean over the window's recoveries of the host seconds of the
+program's spans "restore.verify" (each chunk's digest on the device,
+read back) inside each "restore"."""
+from bench.program_trace import restore_host_s
+
+
+def read(run):
+    return restore_host_s(run, "restore.verify")

@@ -1,0 +1,7 @@
+"""The median over the window's steps of the device seconds of the
+program's span "step.forward" (the loss under the remat policy)."""
+from bench.program_trace import median_device_s
+
+
+def read(run):
+    return median_device_s(run, "step.forward")

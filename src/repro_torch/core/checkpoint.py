@@ -52,7 +52,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.core.codec import (DEFAULT_COMPRESS_LEVEL, ChainPolicy,
                                     CheckpointError, DeltaChainError,
                                     DeltaCodec, ImageCodec, ImageError,
@@ -214,7 +214,7 @@ class CheckpointManager:
                  for k, v in _flatten(logical_tree).items()}
                 if logical_tree is not None else {})
             fut = self._writer.submit(self._write, step, snap, logical_flat,
-                                      extra or {}, snap_s)
+                                      extra or {}, snap_s, trace.current())
         self._pending, self._pending_mesh = fut, mesh
         return fut
 
@@ -251,7 +251,22 @@ class CheckpointManager:
 
     # ---- write path -----------------------------------------------------------
     def _write(self, step: int, snap_tree, logical_flat, extra,
-               snap_s: float) -> Dict:
+               snap_s: float, parent=None) -> Dict:
+        """Write one image on the writer thread.  Spans
+        (`repro_torch.trace`): "image.write" (child of `parent`, the
+        span that took the snapshot) holding, per leaf, "image.encode"
+        (the codec, on the device) and, per chunk, "image.digest" and
+        "image.d2h" (on the device) and "image.file"; then
+        "image.commit" (the manifest and the atomic rename).  The GC
+        after the commit is in no span."""
+        with trace.span("image.write", parent=parent, step=step):
+            stats = self._write_image(step, snap_tree, logical_flat, extra,
+                                      snap_s)
+        self._gc()
+        return stats
+
+    def _write_image(self, step: int, snap_tree, logical_flat, extra,
+                     snap_s: float) -> Dict:
         t0 = time.monotonic()
         d = self.step_dir(step)
         tmp = d + ".tmp"
@@ -266,10 +281,11 @@ class CheckpointManager:
                     and self._since_full < self.full_every - 1)
         ctx = _EncodeCtx(self, prev_step if delta_ok else None)
         for path, arr in flat.items():
-            for codec in self.codecs:
-                encoded = codec.encode(path, arr, ctx)
-                if encoded is not None:
-                    break
+            with trace.span("image.encode", device=True, path=path):
+                for codec in self.codecs:
+                    encoded = codec.encode(path, arr, ctx)
+                    if encoded is not None:
+                        break
             encoding, payloads, meta = encoded
             entry: Dict[str, Any] = {
                 "shape": list(arr.shape),
@@ -290,9 +306,13 @@ class CheckpointManager:
                     fname = f"{path.replace('/', '.')}-{pi}.{ci}"
                     # digest where the bytes are (on the card for a
                     # device payload), then copy only the payload out
-                    digest = shard_digest(chunk)
-                    with open(os.path.join(tmp, fname), "wb") as f:
-                        f.write(_host(chunk))
+                    with trace.span("image.digest", device=True):
+                        digest = shard_digest(chunk)
+                    with trace.span("image.d2h", device=True):
+                        host = _host(chunk)
+                    with trace.span("image.file", bytes=len(chunk)):
+                        with open(os.path.join(tmp, fname), "wb") as f:
+                            f.write(host)
                     files.append({"file": fname, "part": pi,
                                   "nbytes": len(chunk),
                                   "checksum": digest})
@@ -307,26 +327,27 @@ class CheckpointManager:
             "extra": extra,
             "total_bytes": total,
         }
-        with open(os.path.join(tmp, MANIFEST), "w") as f:
-            json.dump(manifest, f)
-        if os.path.exists(d):
-            # re-checkpointing a step: retire the committed image aside
-            # first, so no crash window leaves the step without one
-            retired = os.path.join(self.dir,
-                                   "retired." + os.path.basename(d))
-            shutil.rmtree(retired, ignore_errors=True)
-            os.replace(d, retired)
-            os.replace(tmp, d)  # atomic commit
-            shutil.rmtree(retired, ignore_errors=True)
-        else:
-            os.replace(tmp, d)  # atomic commit
+        with trace.span("image.commit"):
+            with open(os.path.join(tmp, MANIFEST), "w") as f:
+                json.dump(manifest, f)
+            if os.path.exists(d):
+                # re-checkpointing a step: retire the committed image
+                # aside first, so no crash window leaves the step
+                # without one
+                retired = os.path.join(self.dir,
+                                       "retired." + os.path.basename(d))
+                shutil.rmtree(retired, ignore_errors=True)
+                os.replace(d, retired)
+                os.replace(tmp, d)  # atomic commit
+                shutil.rmtree(retired, ignore_errors=True)
+            else:
+                os.replace(tmp, d)  # atomic commit
         wrote_delta = any("base_step" in e for e in arrays.values())
         self._since_full = self._since_full + 1 if wrote_delta else 0
         stats = {"step": step, "bytes": total,
                  "snapshot_s": round(snap_s, 4),
                  "write_s": round(time.monotonic() - t0, 4)}
         self.stats.append(stats)
-        self._gc()
         return stats
 
     def _gc(self) -> None:
@@ -363,11 +384,15 @@ class CheckpointManager:
         buf = torch.empty(sum(sizes), dtype=torch.uint8, device=self.device)
         o = 0
         for fmeta, n in zip(metas, sizes):
-            host = np.fromfile(os.path.join(d, fmeta["file"]), dtype=np.uint8)
+            with trace.span("restore.read", bytes=n):
+                host = np.fromfile(os.path.join(d, fmeta["file"]),
+                                   dtype=np.uint8)
             chunk = buf[o:o + n]
-            chunk.copy_(torch.from_numpy(host))
+            with trace.span("restore.upload", device=True):
+                chunk.copy_(torch.from_numpy(host))
             if self.verify:
-                got = shard_digest(chunk)
+                with trace.span("restore.verify", device=True):
+                    got = shard_digest(chunk)
                 if got != fmeta["checksum"]:
                     raise ImageIntegrityError(
                         f"checksum mismatch in {fmeta['file']}: "
@@ -397,7 +422,8 @@ class CheckpointManager:
             raise CheckpointError(f"unknown encoding {entry['encoding']}")
         n_parts = 1 + max((f["part"] for f in entry["files"]), default=0)
         parts = [self._read_payload(d, entry, pi) for pi in range(n_parts)]
-        return codec.decode(parts, entry, _DecodeCtx(self, path, _depth))
+        with trace.span("restore.decode", device=True, path=path):
+            return codec.decode(parts, entry, _DecodeCtx(self, path, _depth))
 
     def restore(self, step: Optional[int] = None, *, mesh=None, specs=None,
                 skeleton=None) -> Tuple[Any, Dict]:
@@ -406,23 +432,29 @@ class CheckpointManager:
         to the NEW topology as a DTensor (a leaf missing from `specs` is
         replicated); with mesh=None the leaves are full tensors.
 
-        Returns (state_tree, extra).
+        Returns (state_tree, extra).  Spans (`repro_torch.trace`):
+        "restore" holding, per chunk, "restore.read" (the file),
+        "restore.upload" and "restore.verify" (on the device); per array,
+        "restore.decode" (on the device); then "restore.rebuild" (the
+        leaves placed, the tree rebuilt).
         """
         step = self.latest_step() if step is None else step
         if step is None:
             raise CheckpointError("no checkpoints found")
-        d = self.step_dir(step)
-        man = self._manifest(d)
-        flat = {p: self._read_array(d, p) for p in man["arrays"]}
-        if mesh is not None:
-            from torch.distributed.tensor import distribute_tensor
+        with trace.span("restore", step=step):
+            d = self.step_dir(step)
+            man = self._manifest(d)
+            flat = {p: self._read_array(d, p) for p in man["arrays"]}
+            with trace.span("restore.rebuild"):
+                if mesh is not None:
+                    from torch.distributed.tensor import distribute_tensor
 
-            spec_flat = _flatten(specs) if specs is not None else {}
-            flat = {p: distribute_tensor(
-                a, mesh, placements(spec_flat.get(p, PartitionSpec()), mesh,
-                                   a.shape),
-                src_data_rank=None) for p, a in flat.items()}
-        return _rebuild(flat), man["extra"]
+                    spec_flat = _flatten(specs) if specs is not None else {}
+                    flat = {p: distribute_tensor(
+                        a, mesh, placements(spec_flat.get(p, PartitionSpec()),
+                                            mesh, a.shape),
+                        src_data_rank=None) for p, a in flat.items()}
+                return _rebuild(flat), man["extra"]
 
 
 def _snapshot(tree, device):

@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.checkpoint import CheckpointManager
 from repro_torch.core.control import make_control_plane
@@ -159,8 +159,9 @@ class MANARuntime:
         """Elastic restart: map the upper half back in onto THIS lower
         half (which may have a different mesh shape, or none, or run a
         different transport than the writer's)."""
-        state, extra = self.ckpt.restore(
-            step, mesh=self.lower.mesh, specs=self.lower.state_specs)
+        with trace.when_profiled():
+            state, extra = self.ckpt.restore(
+                step, mesh=self.lower.mesh, specs=self.lower.state_specs)
         self.state = state
         meta = extra.get("run_meta", {})
         if meta.get("arch") and meta["arch"] != self.cfg.arch_id:
@@ -192,15 +193,17 @@ class MANARuntime:
 
     # ---- snapshot (phase-2 payload) --------------------------------------------
     def _snapshot(self) -> None:
-        step = int(_local(self.state["step"]))
-        extra = {
-            "data": self.dataset.state_dict(step),
-            "agent": self.agent.serialize(),
-            "run_meta": {"arch": self.cfg.arch_id,
-                         "shape": self.rc.shape.name,
-                         "seed": self.seed},
-        }
-        self.ckpt.save_async(step, self.state, self.logical, extra)
+        with trace.span("safe_point.snapshot", device=True) as sp:
+            step = int(_local(self.state["step"]))
+            sp.set(step=step)
+            extra = {
+                "data": self.dataset.state_dict(step),
+                "agent": self.agent.serialize(),
+                "run_meta": {"arch": self.cfg.arch_id,
+                             "shape": self.rc.shape.name,
+                             "seed": self.seed},
+            }
+            self.ckpt.save_async(step, self.state, self.logical, extra)
         self.checkpoints_taken += 1
 
     # ---- the loop -----------------------------------------------------------------
@@ -232,26 +235,50 @@ class MANARuntime:
     def run(self, num_steps: int,
             on_metrics: Optional[Callable[[int, Dict], None]] = None,
             stop_flag: Optional[Callable[[], bool]] = None) -> List[Dict]:
+        """Train up to `num_steps` steps, passing the safe point after
+        each; `on_metrics(step, metrics)` after each step, `stop_flag()`
+        before each.  Spans (`repro_torch.trace`): one "step" a
+        iteration, holding "step.batch" (the step index read back, the
+        batch made and uploaded), the train step's own, "step.metrics"
+        (the metrics read back), "step.callback" (each call of the
+        caller's functions) and "safe_point"."""
         assert self.state is not None, "initialize() or restore() first"
-        for _ in range(num_steps):
+        with trace.when_profiled():
+            for _ in range(num_steps):
+                with trace.span("step") as sp:
+                    if not self._iteration(sp, on_metrics, stop_flag):
+                        break
+            self.agent.drain_writer()  # async mode: writer acks owed first
+            self.ckpt.wait()
+        return self.history
+
+    def _iteration(self, sp, on_metrics, stop_flag) -> bool:
+        """One step of `run` and its safe point; False where `stop_flag`
+        ended the run first."""
+        with trace.span("step.batch"):
             step = int(_local(self.state["step"]))
-            if stop_flag is not None and stop_flag():
-                break
+            sp.set(step=step)
+        if stop_flag is not None:
+            with trace.span("step.callback"):
+                if stop_flag():
+                    return False
+        with trace.span("step.batch"):
             batch = self.dataset.get_batch(step)
             batch = {k: torch.from_numpy(v).to(self.device)
                      for k, v in batch.items()}
             if self.lower.mesh is not None:
                 batch = self._split_batch(batch)
-            self.state, metrics = self.lower.train_step(self.state, batch)
+        self.state, metrics = self.lower.train_step(self.state, batch)
+        with trace.span("step.metrics"):
             metrics = {k: float(_full(v)) for k, v in metrics.items()}
-            metrics["step"] = step
-            self.history.append(metrics)
-            if on_metrics is not None:
+        metrics["step"] = step
+        self.history.append(metrics)
+        if on_metrics is not None:
+            with trace.span("step.callback"):
                 on_metrics(step, metrics)
-            # MANA safe point: step boundary (outside any dispatch)
+        # MANA safe point: step boundary (outside any dispatch)
+        with trace.span("safe_point"):
             self._maybe_trigger(step + 1)
             if self.agent.safe_point(self._snapshot):
                 self._last_ckpt_time = time.monotonic()
-        self.agent.drain_writer()  # async mode: writer acks owed first
-        self.ckpt.wait()
-        return self.history
+        return True

@@ -18,6 +18,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
@@ -97,22 +98,29 @@ def decode_state_specs(cfg: ModelConfig, rc: RunConfig, rules: ShardingRules,
 
 
 def make_train_step(cfg: ModelConfig, rc: RunConfig, rules=None):
+    """(state, batch) -> (state, metrics).  Spans (`repro_torch.trace`),
+    each with its device interval: "step.forward" (the loss, under the
+    remat policy), "step.backward" (the gradients, recompute included)
+    and "step.optimizer" (the learning rate and the AdamW update)."""
     assert rc.grad_accum == 1, "grad accumulation wired via microbatch loop"
 
     def train_step(state, batch):
         params, opt, step = state["params"], state["opt"], state["step"]
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         with torch.enable_grad():
-            loss, metrics = T.forward_loss(tree_unflatten(params, leaves),
-                                           cfg, rc, rules, batch)
-            # held only by this list, which the update consumes entry by
-            # entry (the gradients' memory is released as it goes)
-            grads = list(torch.autograd.grad(loss, leaves))
-        lr = adamw.lr_schedule(step, rc.lr)
-        new_params, new_opt, gnorm = adamw.apply_updates(
-            params, grads, opt, lr=lr,
-            beta1=rc.beta1, beta2=rc.beta2, weight_decay=rc.weight_decay,
-            grad_clip=rc.grad_clip)
+            with trace.span("step.forward", device=True):
+                loss, metrics = T.forward_loss(
+                    tree_unflatten(params, leaves), cfg, rc, rules, batch)
+            with trace.span("step.backward", device=True):
+                # held only by this list, which the update consumes entry
+                # by entry (the gradients' memory is released as it goes)
+                grads = list(torch.autograd.grad(loss, leaves))
+        with trace.span("step.optimizer", device=True):
+            lr = adamw.lr_schedule(step, rc.lr)
+            new_params, new_opt, gnorm = adamw.apply_updates(
+                params, grads, opt, lr=lr,
+                beta1=rc.beta1, beta2=rc.beta2,
+                weight_decay=rc.weight_decay, grad_clip=rc.grad_clip)
         out_metrics = {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr,
                        **{k: v.detach() for k, v in metrics.items()}}
         return ({"params": new_params, "opt": new_opt, "step": step + 1},
