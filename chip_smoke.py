@@ -33,6 +33,13 @@ each fatal on failure:
      where a 32-bit byte count or offset would show), with their times
      there; checksum of each of these leaves equal to its plain version's
      (and at 2 KiB, the smallest leaf's tail, short of one 8 KiB block);
+     the fused attention kernels (forward; backward) against the plain
+     chunked attention at one layer of the main path (B 14, S 4096, 16
+     heads over 2 KV heads, hd 64, causal, bf16): largest differences of
+     the output and of the three gradients, device times of kernel and
+     plain version beside `scaled_dot_product_attention` (a yardstick the
+     port never calls) and the FLOP bound at 989 TFLOP/s over the 14
+     heads qwen2-0.5b uses (the kernels compute all 16 stored);
   2. main path: full-width qwen2-0.5b through `MANARuntime` on cuda,
      6 steps with an image every 2 (XOR-delta params), then a fresh
      runtime restores step 4 (chain 4 -> 2) and its 2 steps must repeat
@@ -109,8 +116,11 @@ each fatal on failure:
      the step) and median step time beside the dry-run's predictions
      for the same cell (the step's live-set peak and its dot FLOPs, from
      `dry_run` on fake CUDA tensors in a process started with the
-     smoke); both the measured and the predicted peaks must order none
-     >= dots >= comm >= full, with none > full;
+     smoke: fake tensors take the plain chunked attention, so the
+     predictions are the plain path's peaks and products, while the
+     measured steps run the fused attention kernels); both the measured
+     and the predicted peaks must order none >= dots >= comm >= full,
+     with none > full;
   dryrun (last): the dry-run's three cells, each `python -m
      repro_torch.launch.dryrun` in a process started with the smoke that
      runs on the host beside the phases (a `fake` process group of 512
@@ -656,10 +666,114 @@ def phase_kernels(card: str):
         f"bound_ms={bound_ms(nb):.4f} [{card}]")
     del x, qo, so, xo, lo
     torch.cuda.empty_cache()
+    rows += attention_rows(card, gen)
+    torch.cuda.empty_cache()
     check_leaf(card, gen, EXPERT_LEAF, "expert leaf")
     check_leaf(card, gen, HYMBA_LEAF, "hymba leaf")
     check_leaf(card, gen, HYMBA_TINY_LEAF, "hymba tiny leaf")
     check_leaf(card, gen, RWKV_LEAF, "rwkv leaf")
+    return rows
+
+
+# one layer of the main path's attention: B 14 x S 4096 of qwen2-0.5b,
+# 16 stored query heads over 2 KV heads, hd 64, causal; the config uses
+# 14 of the 16 (the other 2 are padding that `head_mask` zeroes, which
+# the kernels compute all the same), so the bound counts 14
+ATTN_SHAPE = (14, 4096, 16, 2, 64)
+ATTN_HEADS_USED = 14
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+
+
+def _grads(out, ins, dout):
+    import torch
+
+    return torch.autograd.grad(out, ins, dout, retain_graph=True)
+
+
+def attention_rows(card: str, gen):
+    """The fused attention kernels (`repro_torch.kernels.attention`) at
+    `ATTN_SHAPE` against the plain chunked attention on the same bf16
+    inputs (largest differences; their tolerances are the card tests',
+    tests/test_torch_attention_kernel.py), and the device times of
+    forward and backward: kernel, plain version, and
+    `scaled_dot_product_attention` on K/V repeated to every query head
+    (a yardstick only), beside the bound at 989 TFLOP/s (the causal
+    half of the `ATTN_HEADS_USED` heads the config uses: 2 products
+    forward, 5 backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import ops as aops
+    from repro_torch.models import attention as attn
+
+    B, S, H, K, hd = ATTN_SHAPE
+    dev = torch.device("cuda")
+    r = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v, dout = r(B, S, H, hd), r(B, S, K, hd), r(B, S, K, hd), \
+        r(B, S, H, hd)
+    ins = [t.requires_grad_(True) for t in (q, k, v)]
+    got = attn.flash_attention(*ins, causal=True)
+    got_g = _grads(got, ins, dout)
+    plain = attn._chunked_attention(*ins, True, 512)
+    plain_g = _grads(plain, ins, dout)
+    err = {n: float((a.detach().float() - b.detach().float()).abs().max())
+           for n, a, b in zip(("o", "dq", "dk", "dv"), (got, *got_g),
+                              (plain, *plain_g))}
+    gap = {n: float((a.detach().float() - b.detach().float()).norm()
+                    / b.detach().float().norm())
+           for n, a, b in zip(("o", "dq", "dk", "dv"), (got, *got_g),
+                              (plain, *plain_g))}
+    if gap["o"] > 1e-2 or max(gap.values()) > 2e-2:
+        raise AssertionError(f"attention kernel against plain: relative "
+                             f"norm gaps {gap}")
+    qs = (q * attn._scale(q)).detach()
+    kd, vd = k.detach(), v.detach()
+    o, lse = aops.forward(qs, kd, vd, True)
+    kf_ms = device_ms(lambda: aops.forward(qs, kd, vd, True), reps=10)
+    kb_ms = device_ms(lambda: aops.backward(qs, kd, vd, o, lse, dout, True),
+                      reps=10)
+    with torch.no_grad():
+        pf_ms = device_ms(lambda: attn._chunked_attention(q, k, v, True, 512),
+                          reps=3, warmup=1)
+    pb_ms = device_ms(lambda: _grads(plain, ins, dout), reps=3, warmup=1)
+    del got, got_g, plain, plain_g
+    torch.cuda.empty_cache()
+    heads = lambda t: t.detach().repeat_interleave(H // K, dim=2) \
+        .transpose(1, 2).requires_grad_(True)
+    lq, lk, lv = (q.detach().transpose(1, 2).requires_grad_(True),
+                  heads(k), heads(v))
+    with torch.no_grad():
+        lf_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=True), reps=10)
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    lb_ms = device_ms(lambda: _grads(lo, (lq, lk, lv), dout.transpose(1, 2)),
+                      reps=10)
+    # score pairs of the causal half over every stored head (what the
+    # kernels execute); the bound counts the heads the config uses
+    pairs = B * H * S * (S + 1) / 2
+    fwd_flops, bwd_flops = 4 * pairs * hd, 10 * pairs * hd
+    shape = (f"B {B} x S {S}, {H} heads over {K} KV heads, hd {hd}, causal, "
+             f"bf16")
+    rows = []
+    for name, ms, p_ms, l_ms, flops in (
+            ("attention_fwd", kf_ms, pf_ms, lf_ms, fwd_flops),
+            ("attention_bwd", kb_ms, pb_ms, lb_ms, bwd_flops)):
+        bound = flops * ATTN_HEADS_USED / H / BF16_FLOPS_PER_S * 1e3
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/attention/csrc/attention.cu",
+            replaces="none (the reference's attention is jnp under a "
+                     "custom VJP, src/repro/models/attention.py:105)",
+            max_abs_err=max(err.values()), ms=ms, plain_ms=p_ms,
+            bound_ms=bound, bound_by="flops", library_ms=l_ms, shape=shape))
+        log(f"kernel {name}: kernel_ms={ms:.4f} plain_ms={p_ms:.4f} "
+            f"library_ms={l_ms:.4f} (scaled_dot_product_attention) "
+            f"bound_ms={bound:.4f} ({ATTN_HEADS_USED} heads used, "
+            f"{bound / ms:.1%} of it); {flops / ms / 1e9:.1f} TFLOP/s "
+            f"executed ({flops:.4g} FLOPs, the causal half of {H} stored "
+            f"heads) [{card}]")
+    log(f"kernel attention: against the plain version at {shape}, largest "
+        f"differences {err}, relative norm gaps {gap} [{card}]")
     return rows
 
 
@@ -2184,8 +2298,10 @@ def phase_remat(cfg, rc, report: dict, jobs: dict):
     peak (`max_memory_allocated` above what was allocated before it) and
     the median step time, beside the dry-run's predictions for the same
     cell (`dry_run` on fake CUDA tensors: the step's live-set peak and
-    its dot FLOPs); the measured and the predicted peaks must both order
-    none >= dots >= comm >= full, with none > full."""
+    its dot FLOPs, both of the plain chunked attention, which fake
+    tensors take, where the measured step runs the attention kernels);
+    the measured and the predicted peaks must both order none >= dots >=
+    comm >= full, with none > full."""
     import torch
 
     from repro_torch.data.pipeline import SyntheticDataset
@@ -2250,7 +2366,8 @@ def report_remat(report: dict, card: str) -> None:
             f"{r['step_s'][len(r['step_s']) // 2]:.4f} s of "
             f"{[round(t, 4) for t in r['step_s']]}; predicted dot FLOPs "
             f"{p['dot_flops']} ({p['dot_flops'] / none_flops:.4f} x none's;"
-            f" the prediction took {p['s']:.1f} s) [{card}]")
+            f" the prediction took {p['s']:.1f} s; predicted with the "
+            f"plain attention, measured with the kernels) [{card}]")
     log(f"remat: full, dots and comm bit-equal (loss, grad norm, every "
         f"updated param); none's largest difference from them "
         f"{report['none_max_diff']:.3e} [{card}]")
@@ -2302,6 +2419,7 @@ def main() -> int:
     from repro_torch.configs import ARCHS
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import ops as aops
     from repro_torch.kernels.checksum import ops as cops
     from repro_torch.kernels.delta import ops as dops
     from repro_torch.kernels.quantize import ops as qops
@@ -2436,15 +2554,23 @@ def main() -> int:
                     "remat": {}, "dryrun": {}}
     counters = {"checksum": (cops, "launches"), "xor_delta": (dops, "launches"),
                 "quantize_int8": (qops, "launches"),
-                "dequantize_int8": (qops, "dequantize_launches")}
+                "dequantize_int8": (qops, "dequantize_launches"),
+                "attention_fwd": (aops, "attention_fwd_launches"),
+                "attention_bwd": (aops, "attention_bwd_launches")}
+    # phases that run flash attention in bf16 on the card: training runs
+    # both kernels, serving the forward; Mixtral and hymba attend through
+    # their sliding window and rwkv has no attention
+    train_attn, serve_attn = ("attention_fwd", "attention_bwd"), (
+        "attention_fwd",)
     paths = {
         "resume": (lambda: phase_resume(cfg, rc, root, report),
-                   ("checksum", "xor_delta")),
+                   ("checksum", "xor_delta") + train_attn),
         "int8": (lambda: phase_int8(cfg, rc, root, report),
-                 ("checksum", "quantize_int8", "dequantize_int8")),
+                 ("checksum", "quantize_int8", "dequantize_int8")
+                 + train_attn),
         "serve_dense": (lambda: phase_serve(cfg, dense_rc, 8, root,
                                             report["serve_dense"]),
-                        ("checksum", "xor_delta")),
+                        ("checksum", "xor_delta") + serve_attn),
         "serve_moe": (lambda: phase_serve(moe_cfg, moe_rc, 4, root,
                                           report["serve_moe"]),
                       ("checksum", "xor_delta")),
@@ -2456,10 +2582,10 @@ def main() -> int:
                        ("checksum", "xor_delta")),
         "serve_whisper": (lambda: phase_serve(
             whisper_cfg, whisper_rc, 8, root, report["serve_whisper"]),
-            ("checksum", "xor_delta")),
+            ("checksum", "xor_delta") + serve_attn),
         "serve_vision": (lambda: phase_serve(
             vision_cfg, vision_rc, 8, root, report["serve_vision"]),
-            ("checksum", "xor_delta")),
+            ("checksum", "xor_delta") + serve_attn),
         "world_pipeline": (lambda: phase_world_pipeline(
             root, report["world_pipeline"]), ("xor_delta",)),
         "world_cross": (lambda: phase_world_cross(
@@ -2469,11 +2595,11 @@ def main() -> int:
         # the entry points install a SIGUSR1 handler (put back on close):
         # after the worlds, whose socket ranks are spawned from here
         "cli": (lambda: phase_cli(root, report["cli"]),
-                ("checksum", "xor_delta")),
+                ("checksum", "xor_delta") + train_attn),
         "quickstart": (lambda: phase_quickstart(root, report["quickstart"]),
-                       ("checksum",)),
+                       ("checksum",) + train_attn),
         "preempt": (lambda: phase_preempt(root, report["preempt"]),
-                    ("checksum",)),
+                    ("checksum",) + train_attn),
         "train_moe": (lambda: phase_train_wide(
             train_moe_cfg, train_moe_rc, root, report["train_moe"],
             "train_moe"),
@@ -2489,20 +2615,24 @@ def main() -> int:
         "train_whisper": (lambda: phase_train_wide(
             train_whisper_cfg, train_whisper_rc, root,
             report["train_whisper"], "train_whisper"),
-            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")
+            + train_attn),
         "train_vision": (lambda: phase_train_wide(
             train_vision_cfg, train_vision_rc, root, report["train_vision"],
             "train_vision"),
-            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")
+            + train_attn),
         # the remat policies on the training cell, beside the dry-run's
         # predictions (started with the smoke)
-        "remat": (lambda: phase_remat(cfg, rc, report["remat"], jobs), ()),
+        "remat": (lambda: phase_remat(cfg, rc, report["remat"], jobs),
+                  train_attn),
         # the mesh phases last, on one NCCL group (`nccl_mesh`): after
         # phase 2 and train_moe, whose mesh-free losses they are held to
         "train_mesh": (lambda: phase_train_mesh_family(
             cfg, rc, root, report["train_mesh"], "train_mesh", 4, (2, 4),
             want=[(x,) for x in report["resume_losses"][:4]], int8=True),
-            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")
+            + train_attn),
         # one full image: its 20.6 GB writes and reads are most of the
         # phase, and train_moe runs XOR, quantize and dequantize on the
         # same leaves without a mesh
@@ -2523,13 +2653,15 @@ def main() -> int:
             mesh_whisper_cfg, mesh_whisper_rc, root,
             report["train_mesh_whisper"], "train_mesh_whisper", 3, (2,),
             int8=True),
-            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")),
+            ("checksum", "xor_delta", "quantize_int8", "dequantize_int8")
+            + train_attn),
         # as train_mesh_moe: one full ~21 GB image, and train_vision runs
         # XOR, quantize and dequantize on the same leaves without a mesh
         "train_mesh_vision": (lambda: phase_train_mesh_family(
             train_vision_cfg, mesh_vision_rc, root,
             report["train_mesh_vision"], "train_mesh_vision", 4, (2,),
-            want=report["train_vision"]["losses"][:4]), ("checksum",)),
+            want=report["train_vision"]["losses"][:4]), ("checksum",)
+            + train_attn),
         # serving on the mesh, last: dense, MoE, hybrid and rwkv held to
         # their serve_* phases' logits and tokens (kept on the host),
         # whisper and vision to their own twins; checksum and XOR on the
@@ -2537,7 +2669,7 @@ def main() -> int:
         "serve_mesh_dense": (lambda: phase_serve_mesh(
             cfg, dense_rc, 8, root, report["serve_mesh_dense"],
             "serve_mesh_dense", want=_served(report["serve_dense"])),
-            ("checksum", "xor_delta")),
+            ("checksum", "xor_delta") + serve_attn),
         "serve_mesh_moe": (lambda: phase_serve_mesh(
             moe_cfg, moe_rc, 4, root, report["serve_mesh_moe"],
             "serve_mesh_moe", want=_served(report["serve_moe"])),
@@ -2553,11 +2685,11 @@ def main() -> int:
         "serve_mesh_whisper": (lambda: phase_serve_mesh(
             mesh_whisper_cfg, mesh_serve_whisper_rc, 8, root,
             report["serve_mesh_whisper"], "serve_mesh_whisper"),
-            ("checksum", "xor_delta")),
+            ("checksum", "xor_delta") + serve_attn),
         "serve_mesh_vision": (lambda: phase_serve_mesh(
             train_vision_cfg, mesh_serve_vision_rc, 8, root,
             report["serve_mesh_vision"], "serve_mesh_vision"),
-            ("checksum", "xor_delta")),
+            ("checksum", "xor_delta") + serve_attn),
         # the dry-run's two cells, started with the smoke
         "dryrun": (lambda: phase_dryrun(report["dryrun"], jobs), ()),
     }

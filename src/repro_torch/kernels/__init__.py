@@ -1,12 +1,15 @@
 """Hand-written Hopper kernels of the checkpoint data path (checksum,
-XOR delta, int8 quantize and dequantize), each beside its plain PyTorch
-version.
+XOR delta, int8 quantize and dequantize) and of the model step (fused
+attention, forward and backward), each beside its plain PyTorch version.
 
 A wrapper (`<kernel>/ops.py`) dispatches by its input's device: a CUDA
 tensor launches the kernel built from `<kernel>/csrc/*.cu` (see
 `_build.py`) or raises; a CPU tensor takes the plain version.  Each
 wrapper counts its kernel launches in a module-level counter
-(`launches`; `dequantize_launches` beside it in `quantize.ops`).
+(`launches`; `dequantize_launches` beside it in `quantize.ops`;
+`attention_fwd_launches` and `attention_bwd_launches` in
+`attention.ops`, whose plain version is the model's chunked attention
+and which CUDA tensors take only in bf16).
 """
 from __future__ import annotations
 

@@ -24,6 +24,7 @@ from typing import Dict
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {
+    "attention": os.path.join(_PKG, "attention", "csrc", "attention.cu"),
     "checksum": os.path.join(_PKG, "checksum", "csrc", "checksum.cu"),
     "delta": os.path.join(_PKG, "delta", "csrc", "delta.cu"),
     "quantize": os.path.join(_PKG, "quantize", "csrc", "quantize.cu"),
@@ -34,9 +35,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # C signatures: name -> (argtypes); every entry returns int: the launches
-# a cudaError_t, `xor_tile` the bytes of each input one CTA takes
+# a cudaError_t, `xor_tile` the bytes of each input one CTA takes; the
+# attention launches take their dims and strides as int64 arrays
 _P, _I64 = ctypes.c_void_p, ctypes.c_longlong
+_I64S = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
+    "attention": {"attention_fwd_launch": [_P] * 5 + [_I64S, _I64S, _P],
+                  "attention_bwd_launch": [_P] * 10 + [_I64S, _I64S, _P]},
     "checksum": {"checksum_launch": [_P, _I64, _P, _P, _P]},
     "delta": {"xor_launch": [_P, _P, _P, _I64, _P], "xor_tile": []},
     "quantize": {"quantize_launch": [_P, _I64, _P, _P, _P],

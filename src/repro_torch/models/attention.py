@@ -3,14 +3,20 @@ attention over a sequence, and single-token decode against a KV cache.
 
 Port of `repro.models.attention`.  The reference's flash and
 sliding-window attention are chunked pure jnp with custom VJPs (no
-Pallas kernel), so the port writes them as plain PyTorch ops: f32 scores
-and softmax, probabilities rounded to the compute dtype before the value
-product as in the reference, GQA by grouping the query heads (K/V are
-never repeated).  Both loop over blocks of `chunk` queries, each against
-its keys (all T keys for flash attention, so queries and keys may differ
-in length, as cross attention needs), so the score tensor of one call is
-O(chunk) rows, never (S, T).  Each block is one `_Attend`, the
-reference's custom VJP: it keeps its inputs, its output and the row
+Pallas kernel).  On a CUDA tensor in bf16, flash attention runs the
+hand-written kernels of `repro_torch.kernels.attention` (`_Fused`: bf16
+tensor-core products summed in f32, the softmax on chip, a backward
+without atomics); the choice follows only the input's device, dtype and
+head dim (`attention.ops.runs_kernel`).  Everywhere else (CPU tensors,
+other dtypes, the dry-run's fake tensors), and for sliding-window
+attention, the port writes the reference as plain PyTorch ops: f32
+scores and softmax, probabilities rounded to the compute dtype before
+the value product as in the reference, GQA by grouping the query heads
+(K/V are never repeated).  Both loop over blocks of `chunk` queries,
+each against its keys (all T keys for flash attention, so queries and
+keys may differ in length, as cross attention needs), so the score
+tensor of one call is O(chunk) rows, never (S, T).  Each block is one
+`_Attend`, the reference's custom VJP: it keeps its inputs, its output and the row
 log-sum-exp, and its backward recomputes the probabilities, so a
 block's backward, too, holds one block's scores at a time.  Queries,
 keys and values are laid out heads first, (B, K, ., hd), once per
@@ -26,6 +32,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels.attention import ops as attention_ops
 from repro_torch.models.layers import _dense_init, apply_rope, pad_dim
 from repro_torch.models.remat import saved_result
 from repro_torch.sharding.rules import on_local_shards
@@ -307,20 +314,53 @@ class _Attend(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+class _Fused(torch.autograd.Function):
+    """Flash attention through the kernels of
+    `repro_torch.kernels.attention`: q (B,S,H,hd) scaled, k, v (B,T,K,hd),
+    all in the compute dtype, read where they lie.  It keeps q, k, v, the
+    output and the row log-sum-exp (B, K, S * G), never a score: the
+    backward kernels recompute the probabilities, as the reference's
+    `_flash_bwd` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        # one product to remat "dots", as `_Attend`
+        out, lse = saved_result(attention_ops.forward, q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*attention_ops.backward(q, k, v, out, lse, dout, ctx.causal),
+                None)
+
+
 def flash_attention(q, k, v, *, causal: bool, chunk: int = 128):
     """q: (B,S,H,hd); k,v: (B,T,K,hd) -> (B,S,H,hd).
+
+    On the card in bf16 (`attention_ops.runs_kernel`), one `_Fused`
+    (the kernels; `chunk` is not read).  Else `_chunked_attention`.  As
+    in the reference, q is scaled in its own dtype.  On a mesh
+    (DTensors) it runs on local shards (`_on_mesh`)."""
+    if hasattr(q, "device_mesh"):
+        return _on_mesh(functools.partial(flash_attention, causal=causal,
+                                          chunk=chunk), q, k, v)
+    if attention_ops.runs_kernel(q):
+        return _Fused.apply(q * _scale(q), k, v, causal)
+    return _chunked_attention(q, k, v, causal, chunk)
+
+
+def _chunked_attention(q, k, v, causal: bool, chunk: int):
+    """`flash_attention`'s plain version, on plain tensors.
 
     Blocks of `chunk` queries, each against all T keys (T may differ
     from S: non-causal cross attention), or, causal, against the keys up
     to its last query (the later keys would get probability exactly
     0): the reference's online softmax over key blocks is, in exact
-    arithmetic, this single pass over every key of a query row.  As
-    there, q is scaled in its own dtype.  Memory O(B * chunk * H * T)
-    for the scores, forward and backward.  On a mesh (DTensors) it runs
-    on local shards (`_on_mesh`)."""
-    if hasattr(q, "device_mesh"):
-        return _on_mesh(functools.partial(flash_attention, causal=causal,
-                                          chunk=chunk), q, k, v)
+    arithmetic, this single pass over every key of a query row.  Memory
+    O(B * chunk * H * T) for the scores, forward and backward."""
     S, T = q.shape[1], k.shape[1]
     qh, kh, vh = _heads_first(q, k, v)
     chunk = max(1, min(chunk, S))

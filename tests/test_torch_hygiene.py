@@ -115,3 +115,42 @@ def test_card_scripts_import_no_jax_and_nothing_of_repro(rel):
     assert any(m.startswith("repro_torch") for m in names), rel
     bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, (rel, bad)
+
+
+# PyTorch's fused attention and compiler, and packages of finished
+# attention kernels: the port's attention is its own kernel
+_LIBRARY_CALLS = {"scaled_dot_product_attention",
+                  "_scaled_dot_product_flash_attention",
+                  "_scaled_dot_product_efficient_attention",
+                  "_scaled_dot_product_cudnn_attention",
+                  "_flash_attention_forward", "flex_attention"}
+_KERNEL_PACKAGES = ("flash_attn", "flash_attn_interface", "xformers",
+                    "flashinfer", "transformer_engine", "apex", "triton",
+                    "torch._dynamo", "torch._inductor", "torch.nn.attention")
+_PORT_MODULES = sorted(
+    os.path.relpath(os.path.join(d, f), os.path.join(SRC, "repro_torch"))
+    for d, _, fs in os.walk(os.path.join(SRC, "repro_torch"))
+    for f in fs if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("rel", _PORT_MODULES)
+def test_port_calls_no_library_attention_or_compiler(rel):
+    """No module of the port calls `scaled_dot_product_attention` (or
+    another of PyTorch's fused attention ops) or `torch.compile`, or
+    imports a package of finished attention kernels."""
+    tree = ast.parse(_read("repro_torch", rel))
+    bad = [n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+           and (n.attr in _LIBRARY_CALLS or (
+               n.attr == "compile" and isinstance(n.value, ast.Name)
+               and n.value.id == "torch"))]
+    bad += [n.id for n in ast.walk(tree)
+            if isinstance(n, ast.Name) and n.id in _LIBRARY_CALLS]
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module and not n.level]
+    bad += [m for m in names
+            if any(m == p or m.startswith(p + ".") for p in _KERNEL_PACKAGES)]
+    bad += [a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+            for a in n.names if a.name in _LIBRARY_CALLS]
+    assert not bad, (rel, bad)
