@@ -4,7 +4,8 @@ the `CheckpointManager` codec stack, bit-identical resume) and the
 serving path (`repro_torch.training.step.make_serve_steps`: prefill and
 functional decode steps whose state a live image can hold), for every
 model family of the reference (dense, MoE, hybrid-SSM and RWKV-6
-decoders, encoder-decoder and vision cross-attention models), with the
+decoders, encoder-decoder and vision cross-attention models; and, for
+training only, granite-4.0-h's Mamba-2 + GQA stack), with the
 checkpoint data path's kernels written by hand for Hopper (sm_90a):
 checksum block sums, XOR delta, and int8 quantize and dequantize.
 
@@ -15,7 +16,10 @@ identical to their `repro` originals after the `repro.` -> `repro_torch.`
 prefix swap, with the reference's numbered history tags dropped from
 comments (tests/test_torch_hygiene.py holds them to that), and
 `VERBATIM_FUNCTIONS` the functions and classes copied into otherwise
-rewritten modules.
+rewritten modules.  `configs/base.py` and `configs/__init__.py` add to
+the reference's the `layer_types` stack's fields and granite-4.0-h-micro,
+an architecture the JAX package does not have; their other classes,
+constants and functions are listed there.
 
 Mesh training: the dense decoder, MoE, hybrid-SSM and RWKV-6 families
 train on a `torch.distributed.device_mesh.DeviceMesh` (`MANARuntime(mesh=...)`,
@@ -75,8 +79,6 @@ VERBATIM_COPIES = (
     "core/snapshot_writer.py",
     "core/restore.py",
     "core/image_store.py",
-    "configs/__init__.py",
-    "configs/base.py",
     "configs/hymba_1_5b.py",
     "configs/llama32_vision_11b.py",
     "configs/mixtral_8x7b.py",
@@ -119,6 +121,16 @@ VERBATIM_FUNCTIONS = (
     ("comm/transport/harness.py", "run_world_supervised"),
     ("launch/dryrun.py", "COLLECTIVE_OPS"),
     ("launch/dryrun.py", "production_rc"),
+    ("configs/__init__.py", "get_arch"),
+    ("configs/base.py", "MoEConfig"),
+    ("configs/base.py", "ShapeConfig"),
+    ("configs/base.py", "TRAIN_4K"),
+    ("configs/base.py", "PREFILL_32K"),
+    ("configs/base.py", "DECODE_32K"),
+    ("configs/base.py", "LONG_500K"),
+    ("configs/base.py", "SHAPES_BY_NAME"),
+    ("configs/base.py", "shape_applicable"),
+    ("configs/base.py", "RunConfig"),
 )
 
 

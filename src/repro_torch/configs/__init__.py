@@ -25,6 +25,7 @@ from repro_torch.configs.qwen1_5_0_5b import CONFIG as QWEN1_5_0_5B
 from repro_torch.configs.hymba_1_5b import CONFIG as HYMBA_1_5B
 from repro_torch.configs.llama32_vision_11b import CONFIG as LLAMA32_VISION_11B
 from repro_torch.configs.rwkv6_3b import CONFIG as RWKV6_3B
+from repro_torch.configs.granite_4_0_h_micro import CONFIG as GRANITE_4_0_H_MICRO
 
 ARCHS = {
     c.arch_id: c
@@ -39,6 +40,7 @@ ARCHS = {
         HYMBA_1_5B,
         LLAMA32_VISION_11B,
         RWKV6_3B,
+        GRANITE_4_0_H_MICRO,
     )
 }
 
@@ -81,5 +83,13 @@ def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
     )
     if cfg.moe is not None:
         small["moe"] = MoEConfig(num_experts=4, top_k=2, capacity_factor=1.5)
+    if cfg.layer_types:
+        # one published period (9:1 Mamba-2 to attention), 4 SSM heads of
+        # 16 channels, state 8, chunk 8
+        first = cfg.layer_types.index("attention")
+        period = cfg.layer_types[:cfg.layer_types.index("attention", first + 1)
+                                 - first]
+        small.update(n_layers=len(period), layer_types=period, mamba_heads=4,
+                     mamba_head_dim=16, mamba_state=8, mamba_chunk=8)
     small.update(overrides)
     return dataclasses.replace(cfg, **small)

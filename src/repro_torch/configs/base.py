@@ -61,6 +61,23 @@ class ModelConfig:
     cross_attn_every: int = 0         # every Nth layer is a cross-attn layer
     vision_tokens: int = 1600         # stub image-patch positions
 
+    # --- hybrid stack (granite-4.0-h): Mamba-2 and attention layers in a
+    # published order, each followed by the MLP; () => no such stack ---
+    layer_types: Tuple[str, ...] = ()  # "mamba" | "attention" per layer
+    mamba_heads: int = 0              # Mamba-2 SSM heads
+    mamba_head_dim: int = 0           # d_inner = mamba_heads * mamba_head_dim
+    mamba_state: int = 0              # state size N
+    mamba_groups: int = 1             # B/C groups shared by the heads
+    mamba_conv: int = 4               # causal depthwise conv width
+    mamba_chunk: int = 256            # SSD chunk (the result's rounding only)
+
+    # --- muP-style multipliers and positions (defaults: none, RoPE) ---
+    rope: bool = True                 # False => no positions (NoPE)
+    embedding_multiplier: float = 1.0
+    attention_multiplier: float = 0.0  # softmax scale; 0 => 1/sqrt(head_dim)
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0       # logits divided by it
+
     # --- norm / misc ---
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -121,6 +138,23 @@ class ModelConfig:
         return self.n_kv_heads * self.head_dim
 
     @property
+    def mamba_inner(self) -> int:
+        return self.mamba_heads * self.mamba_head_dim
+
+    @property
+    def mamba_conv_dim(self) -> int:
+        """Channels of the Mamba-2 conv: x, B and C."""
+        return self.mamba_inner + 2 * self.mamba_groups * self.mamba_state
+
+    def mamba_params(self) -> int:
+        """One Mamba-2 mixer: in_proj to [z, xBC, dt], the conv (weight and
+        bias), dt_bias, A_log, D, the gated norm and out_proj."""
+        d, di, nh = self.d_model, self.mamba_inner, self.mamba_heads
+        cd = self.mamba_conv_dim
+        return (d * (di + cd + nh) + (self.mamba_conv + 1) * cd + 3 * nh
+                + di + di * d)
+
+    @property
     def subquadratic(self) -> bool:
         """True if serve_step memory/compute is sub-quadratic in context.
 
@@ -152,6 +186,11 @@ class ModelConfig:
         def mlp_params(n_copies: float = 1.0) -> int:
             # gated MLP (SwiGLU-style): 3 matrices
             return int(3 * d * dff * n_copies)
+
+        if self.layer_types:
+            return int(embed + head + sum(
+                (self.mamba_params() if t == "mamba" else attn_params())
+                + mlp_params() + 2 * d for t in self.layer_types) + d)
 
         per_layer = 0
         if self.rwkv:

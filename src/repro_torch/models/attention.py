@@ -87,8 +87,9 @@ def init_attention(gen, d_model: int, n_heads: int, n_kv_heads: int,
     return params, logical
 
 
-def qkv_proj(p, x, rope_theta: float, positions):
-    """x: (B,S,d) -> q (B,S,H,hd), k,v (B,S,K,hd) with RoPE applied."""
+def qkv_proj(p, x, rope_theta: float, positions, rope: bool = True):
+    """x: (B,S,d) -> q (B,S,H,hd), k,v (B,S,K,hd) with RoPE applied
+    (none where `rope` is False)."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
@@ -97,8 +98,9 @@ def qkv_proj(p, x, rope_theta: float, positions):
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    if rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
     return q, k, v
 
 
@@ -222,20 +224,24 @@ def _on_mesh(fn, q, k, v):
     return on_local_shards(local, (q, k, v), (q_pl, kv_pl, kv_pl), q_pl)
 
 
-def _scale(q):
+def _scale(q, scale=None):
+    """The softmax scale in q's dtype: `scale`, or 1/sqrt(head_dim)."""
+    if scale is not None:
+        return torch.tensor(scale, dtype=torch.float32).to(dtype=q.dtype,
+                                                           device=q.device)
     hd = q.shape[-1]
     return (1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))).to(
         dtype=q.dtype, device=q.device)
 
 
-def _heads_first(q, k, v):
+def _heads_first(q, k, v, scale=None):
     """Scaled queries (B,S,H,hd) -> (B,K,S,G,hd) in their dtype, and k, v
     (B,T,K,hd) -> (B,K,T,hd) f32, each copied once per call into the
     layout in which every block's products are batched matrix products
     over (B, K) with no further copy."""
     B, S, H, hd = q.shape
     K = k.shape[2]
-    qh = _group(q * _scale(q), K).permute(0, 2, 1, 3, 4).contiguous()
+    qh = _group(q * _scale(q, scale), K).permute(0, 2, 1, 3, 4).contiguous()
     kh, vh = (x.transpose(1, 2).to(torch.float32,
                                    memory_format=torch.contiguous_format)
               for x in (k, v))
@@ -337,22 +343,24 @@ class _Fused(torch.autograd.Function):
                 None)
 
 
-def flash_attention(q, k, v, *, causal: bool, chunk: int = 128):
+def flash_attention(q, k, v, *, causal: bool, chunk: int = 128,
+                    scale=None):
     """q: (B,S,H,hd); k,v: (B,T,K,hd) -> (B,S,H,hd).
 
     On the card in bf16 (`attention_ops.runs_kernel`), one `_Fused`
     (the kernels; `chunk` is not read).  Else `_chunked_attention`.  As
-    in the reference, q is scaled in its own dtype.  On a mesh
-    (DTensors) it runs on local shards (`_on_mesh`)."""
+    in the reference, q is scaled in its own dtype, by `scale` (None:
+    1/sqrt(head_dim)).  On a mesh (DTensors) it runs on local shards
+    (`_on_mesh`)."""
     if hasattr(q, "device_mesh"):
         return _on_mesh(functools.partial(flash_attention, causal=causal,
-                                          chunk=chunk), q, k, v)
+                                          chunk=chunk, scale=scale), q, k, v)
     if attention_ops.runs_kernel(q):
-        return _Fused.apply(q * _scale(q), k, v, causal)
-    return _chunked_attention(q, k, v, causal, chunk)
+        return _Fused.apply(q * _scale(q, scale), k, v, causal)
+    return _chunked_attention(q, k, v, causal, chunk, scale)
 
 
-def _chunked_attention(q, k, v, causal: bool, chunk: int):
+def _chunked_attention(q, k, v, causal: bool, chunk: int, scale=None):
     """`flash_attention`'s plain version, on plain tensors.
 
     Blocks of `chunk` queries, each against all T keys (T may differ
@@ -362,7 +370,7 @@ def _chunked_attention(q, k, v, causal: bool, chunk: int):
     arithmetic, this single pass over every key of a query row.  Memory
     O(B * chunk * H * T) for the scores, forward and backward."""
     S, T = q.shape[1], k.shape[1]
-    qh, kh, vh = _heads_first(q, k, v)
+    qh, kh, vh = _heads_first(q, k, v, scale)
     chunk = max(1, min(chunk, S))
     tpos = torch.arange(T, device=q.device)
     outs = []

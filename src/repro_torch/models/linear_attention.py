@@ -1,5 +1,6 @@
 """Chunked linear attention with per-channel decay: the shared engine of
-the Mamba-2-style SSM heads (hymba) and RWKV-6 time-mix.
+the Mamba-2-style SSM heads (hymba) and RWKV-6 time-mix; and the chunked
+SSD of Mamba-2 (`chunked_ssd`, granite-4.0-h's mixers).
 
 Port of `repro.models.linear_attention`.  Recurrences (state S:
 (B, H, dk, dv), f32):
@@ -27,6 +28,19 @@ decay exp(w_last).  Only the recurrence state_c = state_{c-1} * decay_c
 and one batched einsum reads every chunk's carried state out.  Results
 agree with the reference's to f32 rounding.  The per-chunk contributions
 take (B, n, H, dk, dv) f32.
+
+`chunked_ssd` is the state-space dual of Mamba-2 (arXiv:2405.21060 §7)
+with one scalar decay a head and B, C shared by the heads of a group:
+
+  h_t = exp(dt_t A) h_{t-1} + dt_t x_t^T B_t ;  y_t = C_t h_t
+
+with no clamp of the log decay dt_t A.  Inside a chunk the decay from
+position s to l is exp(segsum), the in-chunk cumulative log decay at l
+less that at s, masked to -inf above the diagonal before `exp`, so no
+factor can overflow however strong the decay; C B^T is formed once per
+group and chunk; each chunk's state contribution is carried across
+chunks by one (n + 1, n + 1) product of chunk decays (their segsum over
+the chunks' totals, a masked cumulative sum).  Everything is f32.
 """
 from __future__ import annotations
 
@@ -180,3 +194,67 @@ def _step_on_local_shards(q, k, v, lw, *, mode, u, state):
 
     return on_local_shards(step, (q, k, v, lw, u, state),
                            (pl, pl, pl, pl, u_pl, pl), (pl, pl))
+
+
+def _segsum(x):
+    """x: (..., T) -> (..., T, T) with [i, j] = x[j+1] + ... + x[i] for
+    j <= i (0 on the diagonal) and -inf above it: the sum of the
+    increments taken as a masked cumulative sum, never as a difference
+    of two cumulative sums, so it loses nothing to cancellation."""
+    T = x.shape[-1]
+    xx = x[..., None].expand(*x.shape, T)             # [i, j] = x[i]
+    below = torch.tril(torch.ones(T, T, dtype=torch.bool, device=x.device),
+                       diagonal=-1)
+    seg = torch.cumsum(xx.masked_fill(~below, 0.0), dim=-2)
+    keep = torch.tril(torch.ones(T, T, dtype=torch.bool, device=x.device))
+    return seg.masked_fill(~keep, float("-inf"))
+
+
+def chunked_ssd(x, dt, A, Bm, Cm, *, chunk: int = 256, state0=None):
+    """Mamba-2's SSD over a full sequence.
+
+    x: (B, S, H, P); dt: (B, S, H) step sizes (after softplus); A: (H,)
+    negative; Bm, Cm: (B, S, G, N), G dividing H (heads h * G // H ..
+    share group g).  Returns (y (B, S, H, P) f32, final state (B, H, P,
+    N) f32); the D skip is the caller's.  `chunk` is cut to the largest
+    divisor of S not above it."""
+    f32 = torch.float32
+    b, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hg = H // G
+    l = min(chunk, S)
+    while S % l:
+        l -= 1
+    c = S // l
+    dA = (dt.to(f32) * A.to(f32)).reshape(b, c, l, H)      # log decay <= 0
+    X = (x.to(f32) * dt.to(f32)[..., None]).reshape(b, c, l, H, P)
+    Bc = Bm.to(f32).reshape(b, c, l, G, N)
+    Cc = Cm.to(f32).reshape(b, c, l, G, N)
+    At = torch.cumsum(dA, dim=2).transpose(2, 3)          # (b, c, H, l)
+    # 1. inside each chunk: y_l = sum_{s<=l} C_l.B_s exp(seg[l, s]) X_s
+    keep = torch.tril(torch.ones(l, l, dtype=torch.bool, device=x.device))
+    seg = (At[..., :, None] - At[..., None, :]).masked_fill(~keep,
+                                                             float("-inf"))
+    CB = torch.einsum("bclgn,bcsgn->bcgls", Cc, Bc)       # per group
+    M = (torch.exp(seg).view(b, c, G, hg, l, l) * CB[:, :, :, None]).view(
+        b, c, H, l, l)
+    y = torch.einsum("bchls,bcshp->bclhp", M, X)
+    # 2. each chunk's state at its end, from its own inputs
+    Xd = X * torch.exp(At[..., -1:] - At).transpose(2, 3)[..., None]
+    states = torch.einsum("bcsgn,bcsgq->bcgqn", Bc,
+                          Xd.reshape(b, c, l, G, hg * P))
+    states = states.reshape(b, c, H, P, N)
+    # 3. carried across chunks: the state entering chunk z sums chunk k's
+    # (k < z) decayed by the chunks between
+    h0 = (torch.zeros((b, 1, H, P, N), dtype=f32, device=x.device)
+          if state0 is None else state0.to(f32)[:, None])
+    states = torch.cat([h0, states], dim=1)               # (b, c+1, ...)
+    tot = torch.nn.functional.pad(At[..., -1].transpose(1, 2), (1, 0))
+    carry = torch.exp(_segsum(tot))                       # (b, H, c+1, c+1)
+    states = torch.einsum("bhzk,bkhpn->bzhpn", carry, states)
+    # 4. the state entering each chunk, read at each position
+    before = states[:, :-1].reshape(b, c, G, hg * P, N)
+    y_off = torch.einsum("bclgn,bcgqn->bclgq", Cc, before).reshape(
+        b, c, l, H, P)
+    y = y + y_off * torch.exp(At).transpose(2, 3)[..., None]
+    return y.reshape(b, S, H, P), states[:, -1]

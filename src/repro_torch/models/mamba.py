@@ -68,12 +68,15 @@ def init_mamba(gen, d_model: int, ssm_state: int, expand: int, *, device,
     return params, logical
 
 
-def _causal_conv(xi, w, b):
-    """Depthwise causal conv width 4 via shifted adds. xi: (B,S,d_in)."""
+def causal_conv(xi, w, b):
+    """Depthwise causal conv via shifted adds. xi: (B,S,C), w: (W,C)
+    (w[-1] weighs the current position; W is CONV_W here, granite's
+    `mamba_conv` in `repro_torch.models.mamba2`), b: (C,)."""
+    W = w.shape[0]
     out = xi * w[-1]
-    for i in range(1, CONV_W):
+    for i in range(1, W):
         shifted = pad_dim(xi, i, 1)[:, :-i]
-        out = out + shifted * w[CONV_W - 1 - i]
+        out = out + shifted * w[W - 1 - i]
     return out + b
 
 
@@ -123,7 +126,7 @@ def mamba_apply(p, x, chunk: int = 32):
     B, S, _ = x.shape
     xi = torch.einsum("bsd,de->bse", x, p["wx"].to(dt_))
     z = torch.einsum("bsd,de->bse", x, p["wz"].to(dt_))
-    xc = F.silu(_causal_conv(xi, p["conv_w"].to(dt_), p["conv_b"].to(dt_)))
+    xc = F.silu(causal_conv(xi, p["conv_w"].to(dt_), p["conv_b"].to(dt_)))
     q, k, v, lw = _ssm_inputs(p, xc, dt_)
     y, state = chunked_linear_attention(q, k, v, lw, mode="mamba", chunk=chunk)
     y = y + v * p["D"].to(dt_)[None, None, :, None]

@@ -13,12 +13,20 @@ embeddings plus sinusoidal positions, and each decoder block adds cross
 attention to the encoder's output between self-attention and the MLP;
 vision models run groups of `cross_attn_every - 1` self blocks and one
 cross block, which adds cross attention to stub image-patch embeddings,
-`batch["patches"]`, given as they are).  Parameter names, shapes, dtypes
-and the logical-axes trees (params and decode state) are the
-reference's: blocks are stacked on a leading (L, ...) layer axis (a
-vision model's self blocks on (G, per-1, ...), its cross blocks on (G,
-...)) and heads are stored padded (`cfg.n_heads_padded`,
-`cfg.n_kv_heads_padded`), so every flattened leaf path
+`batch["patches"]`, given as they are).  A `layer_types` model
+(granite-4.0-h, no reference in the JAX package) runs its own stack:
+Mamba-2 blocks (`repro_torch.models.mamba2`) and GQA attention blocks
+without positions, each followed by the MLP, in the published order,
+with the embedding, residual and logit multipliers; it trains and
+checkpoints, and its serving entry points raise NotImplementedError.
+Parameter names, shapes, dtypes and the logical-axes trees (params and
+decode state) are the reference's: blocks are stacked on a leading (L,
+...) layer axis (a vision model's self blocks on (G, per-1, ...), its
+cross blocks on (G, ...); a `layer_types` model's Mamba-2 and attention
+blocks on one axis each, `params/mamba_blocks/...` and
+`params/attn_blocks/...`) and heads are stored padded
+(`cfg.n_heads_padded`, `cfg.n_kv_heads_padded`), so every flattened
+leaf path
 (`params/blocks/attn/wq`, `params/blocks/xattn/wk`,
 `params/enc_blocks/mlp/wi`, `params/blocks/tm/wr`,
 `params/self_blocks/attn/wq`, `params/cross_blocks/lnx`,
@@ -89,11 +97,12 @@ from typing import Any, Dict, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mam
+from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.remat import checkpoint_kwargs, checkpoint_name
@@ -166,6 +175,30 @@ def _init_rwkv_blocks(gen, cfg: ModelConfig, device):
     return params, _prepend_layers(logical)
 
 
+def _init_hybrid_stacks(gen, cfg: ModelConfig, device):
+    """The `layer_types` stack's blocks: "mamba_blocks" (Mamba-2 mixer
+    and MLP) and "attn_blocks" (GQA attention and MLP), each kind
+    stacked on its own leading (L_kind, ...) axis in layer order."""
+    params: Dict[str, Any] = {}
+    logical: Dict[str, Any] = {}
+    for kind, key in (("mamba", "mamba_blocks"), ("attention", "attn_blocks")):
+        n = cfg.layer_types.count(kind)
+        p: Dict[str, Any] = {"ln1": L._norm_init((n, cfg.d_model), device),
+                             "ln2": L._norm_init((n, cfg.d_model), device)}
+        lg: Dict[str, Any] = {"ln1": (None,), "ln2": (None,)}
+        if kind == "mamba":
+            p["mamba"], lg["mamba"] = mamba2.init_mamba2(gen, cfg, device=device,
+                                                       stack=n)
+        else:
+            p["attn"], lg["attn"] = attn.init_attention(
+                gen, cfg.d_model, cfg.n_heads_padded, cfg.n_kv_heads_padded,
+                cfg.head_dim, cfg.qkv_bias, device=device, stack=n)
+        p["mlp"], lg["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                         device=device, stack=n)
+        params[key], logical[key] = p, _prepend_layers(lg)
+    return params, logical
+
+
 def _prepend_layers(logical):
     if isinstance(logical, dict):
         return {k: _prepend_layers(v) for k, v in logical.items()}
@@ -185,6 +218,10 @@ def init_params(cfg: ModelConfig, generator, device) -> Tuple[Dict, Dict]:
     if cfg.rwkv:
         params["blocks"], logical["blocks"] = _init_rwkv_blocks(
             generator, cfg, device)
+    elif cfg.layer_types:
+        hybrid, lg = _init_hybrid_stacks(generator, cfg, device)
+        params.update(hybrid)
+        logical.update(lg)
     elif cfg.cross_attn_every:
         # G groups of (per - 1) self blocks + 1 cross block; the layers
         # past G * per are dropped, as in the reference
@@ -361,6 +398,50 @@ def _encode(params, cfg, rc, rules, frames):
     return L.rms_norm(x, gather_over_data(params["enc_ln_f"]), cfg.norm_eps)
 
 
+def _hybrid_block(cfg, rc, kind: str, i: int, p, x, positions, outer):
+    """One block of the `layer_types` stack: pre-norm mixer (Mamba-2 or
+    GQA attention without positions, q scaled by `attention_multiplier`),
+    then pre-norm MLP, each added to the stream times
+    `residual_multiplier`.  `i` is the block's layer index, `outer` the
+    forward's span (`mamba2.mamba2_apply`'s parent)."""
+    rm = cfg.residual_multiplier
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "mamba":
+        y = mamba2.mamba2_apply(p["mamba"], h, cfg, layer=i, parent=outer)
+    else:
+        q, k, v = attn.qkv_proj(p["attn"], h, cfg.rope_theta, positions,
+                                rope=cfg.rope)
+        o = attn.flash_attention(q, k, v, causal=True, chunk=rc.attn_chunk,
+                                 scale=cfg.attention_multiplier or None)
+        o = o * attn.head_mask(cfg, o.device)[None, None, :, None].to(o.dtype)
+        y = attn.out_proj(p["attn"], o)
+    x = x + y * rm
+    return x + L.mlp_apply(p["mlp"], L.rms_norm(x, p["ln2"], cfg.norm_eps)) * rm
+
+
+def _hybrid_forward(params, cfg, rc, x, positions):
+    """The `layer_types` stack over the stream x, each block under the
+    remat policy, in the published order."""
+    stacks = {"mamba": _unbind_layers(params["mamba_blocks"]),
+              "attention": _unbind_layers(params["attn_blocks"])}
+    seen = {"mamba": 0, "attention": 0}
+    outer = trace.current()
+    for i, kind in enumerate(cfg.layer_types):
+        p = _layer_params(stacks[kind], seen[kind])
+        seen[kind] += 1
+        x = _remat(rc, lambda x, p, kind=kind, i=i: _hybrid_block(
+            cfg, rc, kind, i, p, x, positions, outer), x, p)
+    return x
+
+
+def _no_serving(cfg: ModelConfig, what: str) -> None:
+    if cfg.layer_types:
+        raise NotImplementedError(
+            f"{what} of a `layer_types` model ({cfg.arch_id}): its decode "
+            "state (a KV cache beside SSM and conv states) is not built; "
+            "it trains and checkpoints only")
+
+
 def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
             want_cache: bool = False):
     """Full-sequence forward.  batch: tokens (B,S) [+ frames (B,Te,d) |
@@ -377,8 +458,19 @@ def forward(params, cfg: ModelConfig, rc: RunConfig, rules, batch,
     B, S = tokens.shape
     dtype = getattr(torch, rc.dtype)
     x = L.embed_apply(params["embed"], tokens, dtype)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     x = constrain(x, rules, ("batch", "seq", None))
     positions = torch.arange(S, device=tokens.device)
+    if cfg.layer_types:
+        if want_cache or rules is not None:
+            raise NotImplementedError(
+                "a `layer_types` model runs its forward without caches and "
+                "without a mesh")
+        x = _hybrid_forward(params, cfg, rc, x, positions)
+        return (L.rms_norm(x, params["ln_f"], cfg.norm_eps),
+                {"moe_aux": torch.zeros((), dtype=torch.float32,
+                                        device=x.device)}, None)
     enc_out = None
     if cfg.enc_dec:
         enc_out = _encode(params, cfg, rc, rules, batch["frames"].to(dtype))
@@ -460,6 +552,9 @@ def forward_loss(params, cfg, rc, rules, batch):
     """Next-token cross entropy (sequence-chunked; no (B,S,V) tensor),
     plus 0.01 * the mean MoE load-balance loss for MoE configs."""
     x, aux, _ = forward(params, cfg, rc, rules, batch)
+    if cfg.logits_scaling != 1.0:
+        # logits / s, as (x / s) @ head: the same bits for a power of two
+        x = x / cfg.logits_scaling
     head = gather_over_data(L.head_matrix(params["embed"]))
     mask = batch.get("mask")
     if mask is None:
@@ -493,7 +588,9 @@ def init_decode_state(cfg: ModelConfig, shape: ShapeConfig, rc: RunConfig,
     state (L, B, H, hd, hd) f32 and the token-shift states (L, B, d); for
     vision models the self blocks' K/V (G, per-1, B, T, K, hd) and the
     cross blocks' cross K/V (G, B, Tv, K, hd), nothing else.  On `device`
-    (None -> cuda, or raises)."""
+    (None -> cuda, or raises).  A `layer_types` model raises
+    NotImplementedError."""
+    _no_serving(cfg, "init_decode_state")
     device = resolve_device(device)
     Lh, B = cfg.n_layers, shape.global_batch
     dt = getattr(torch, rc.dtype)
@@ -639,7 +736,9 @@ def decode_step(params, cfg: ModelConfig, rc: RunConfig, rules, state, token):
     """One decode step. token: (B,1) int -> (logits (B,1,V), new state).
 
     The given state is left as it was: the leaves the step writes are
-    copied first, and the cross K/V are shared with the new state."""
+    copied first, and the cross K/V are shared with the new state.  A
+    `layer_types` model raises NotImplementedError."""
+    _no_serving(cfg, "decode_step")
     dtype = getattr(torch, rc.dtype)
     x = L.embed_apply(params["embed"], token, dtype)
     pos = int(state["pos"])              # the step's one host copy of pos
@@ -679,7 +778,8 @@ def decode_step(params, cfg: ModelConfig, rc: RunConfig, rules, state, token):
 
 def prefill(params, cfg: ModelConfig, rc: RunConfig, rules, batch):
     """Process a full prompt; return (last-token logits (B,V), decode
-    state)."""
+    state).  A `layer_types` model raises NotImplementedError."""
+    _no_serving(cfg, "prefill")
     S = batch["tokens"].shape[1]
     if cfg.sliding_window and S % min(cfg.sliding_window, S):
         raise ValueError(

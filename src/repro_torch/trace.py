@@ -1,5 +1,6 @@
 """Spans of the program's own layers: the training step, the safe point,
-the image writer and restore, on the clock `torch.profiler` stamps.
+the image writer and restore, and the Mamba-2 mixers, on the clock
+`torch.profiler` stamps.
 
     from repro_torch import trace
 
@@ -12,6 +13,16 @@ The modules that do the work open the spans where it happens:
 
     with trace.span("image.file", bytes=n):
         f.write(host)
+
+The Mamba-2 mixers of a `layer_types` hybrid (`repro_torch.models.mamba2`)
+open four, each with its device interval and the attributes `layer`,
+`seq` and `chunk`: "mixer.mamba" around each mixer's forward (its
+recompute under remat too) and "mixer.mamba.ssd" around its SSD core
+inside it; "mixer.mamba.backward" and "mixer.mamba.ssd.backward" around
+their backward, opened where the gradient reaches the region's output
+and closed where its inputs' gradients are made (on autograd's thread
+on a card, children of the forward span).  The benchmark's layer "model
+step" reads them (`ssm_mixer_s`, `ssd_core_s`).
 
 Recording is off by default.  Then `span` is one flag test that returns
 a shared no-op context: nothing is kept, no CUDA event is made, nothing
